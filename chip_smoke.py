@@ -8,17 +8,34 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 1. device  - the card's name, count and power limit; no card, no run.
 2. build   - every CUDA kernel of the port, built from ``csrc/`` with nvcc
              (one process per source, all started together).
-3. kernels - each kernel against its plain PyTorch version on the card, at
-             the main path's shapes, with its time, the plain version's, one
-             PyTorch library call's, and the bound (bytes over 3.35 TB/s).
+3. kernels - K1 against its plain PyTorch version on the card, at the main
+             path's shapes, with its time, the plain version's, one PyTorch
+             library call's, and the bound (bytes over 3.35 TB/s).
 4. main    - ``ElevationMap(deployed config, device="cuda")`` with the
              shipped weights takes 20 updates of a seeded synthetic scene of
-             131072 points while the robot moves (``move_to``); every update
-             must launch K1 exactly 3 times. The last 3 updates are rerun
-             from the same state on ``device="cpu"`` and compared layer by
-             layer. Then per-update latency and points/s at 10k, 131072 and
-             1M points, the peak device memory, and a torch.profiler view
-             of where one update's device time goes.
+             131072 points while the robot moves (``move_to``); the polar
+             cleanup runs, so every update must launch K1 exactly 3 times and
+             K2 never. The last 3 updates are rerun from the same state on
+             ``device="cpu"`` and compared layer by layer. Then per-update
+             latency and points/s at 10k, 131072 and 1M points, the peak
+             device memory, and a torch.profiler view of where one update's
+             device time goes.
+5. march   - K2 against its plain version on the card at the deployed
+             shapes (202x202 cells, 353 steps), on the main phase's map aged
+             past the recency gate, for 131072 and 1048576 rays of the scene,
+             gate on and off: hit counts, upper bounds and segment counts
+             equal, the decrement within 2e-4 relative; its time, the plain
+             version's, and the bound from the work the plain version
+             tallied on the same inputs.
+6. exact   - the same deployed config with ``raycast_mode="exact"``: 8
+             updates of 131072 points with the gated/flat router live (353
+             steps x 131072 points >= 1 << 20); every update must launch K2
+             once and K1 twice. The last 2 updates are rerun on the CPU and
+             compared layer by layer; then latency at 131072 and 1M points
+             and the router's choices.
+7. replay  - a 3-frame log written with ``LogWriter`` and replayed through
+             ``runtime.replay.replay(device="cuda")``, compared with the same
+             replay on the CPU.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
@@ -27,17 +44,20 @@ gives them, the one before it the kernels line, and the last line is
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores (data sheet)
 N_UPDATES = 20
 MAIN_POINTS = 131072
 RATE_POINTS = (10_000, 131072, 1_000_000)
@@ -52,6 +72,28 @@ CMP_MIN_SHARE = 0.999
 # an order the atomics pick, and the cells near the sensor sum thousands of
 # points: one ulp of a sum of 2000 is 1.2e-4.
 VALUE_TOL = 2e-4
+EXACT_UPDATES = 8
+EXACT_CMP_UPDATES = 2
+MARCH_RAYS = (131072, 1 << 20)
+# float32 operations that the march's function needs, an FMA counted as two
+# (csrc/exact_march.cu), for each item of the plain version's work tally on
+# this run's inputs: per valid ray its table (difference 3, norm 5, root 1,
+# direction 3, length 1, decrement 2, trim end 2, two step counts 2 each);
+# per walked sample its distance along the ray 1, x and y 4, their cells 4;
+# per fresh sample in the map its height 2, the offsets to the end point 3,
+# their squared length 5 and its test 1; per tested sample the upper-bound
+# compare; per one on an eligible cell the penetration test 3; per
+# penetrating one the cosine 5, its magnitude and test 2; per hit the two
+# sums; per upper-bound write its min; per segment the gate test (the two
+# ends' distances 2, the first sample's x and y 4 and cells 4, the heights at
+# both ends 4, their min 1, the slack and compare 2). Not counted: the
+# kernel's recomputation of the previous step's cell and its clamps.
+MARCH_OPS = {
+    "rays": 21, "walked": 9, "fresh": 11, "tested": 1, "eligible": 3, "penetrating": 7,
+    "hits": 2, "ub_writes": 1, "segments": 17,
+}
+LAYERS = ["elevation", "variance", "is_valid", "traversability", "time",
+          "upper_bound", "is_upper_bound", "normal_x", "normal_y", "normal_z"]
 
 
 def log(msg: str) -> None:
@@ -299,8 +341,7 @@ def phase_main(cfg, kernel_regs):
 
     if raycast.resolve_raycast_mode(cfg) != "polar":
         raise AssertionError("the deployed config must resolve to the polar cleanup")
-    layers = ["elevation", "variance", "is_valid", "traversability", "time",
-              "upper_bound", "is_upper_bound", "normal_x", "normal_y", "normal_z"]
+    layers = LAYERS
     rng = np.random.default_rng(1)
     em = ElevationMap(cfg, device="cuda")
     cpu = ElevationMap(cfg, device="cpu")
@@ -338,11 +379,8 @@ def phase_main(cfg, kernel_regs):
             cmp_stats.append(_compare_layers(f"update {k}", em.get_layers(layers), cpu.get_layers(layers)))
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     peak = torch.cuda.max_memory_allocated()
-    if launches["scatter_add_streams"] != 3 * N_UPDATES:
-        raise AssertionError(f"K1 launched {launches['scatter_add_streams']} times in {N_UPDATES} updates, want 3 each")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    check_launches("main path (polar)", launches, N_UPDATES, {"scatter_add_streams": 3, "exact_march": 0})
+    mapped_state = em.state
     out = em.get_layers(layers)
     if not all(v.shape == (cfg.cell_n - 2, cfg.cell_n - 2) for v in out.values()):
         raise AssertionError("exported layers have the wrong shape")
@@ -380,17 +418,229 @@ def phase_main(cfg, kernel_regs):
     # unprofiled latency of the main path
     prof["device_busy_share_of_median_latency"] = prof["device_ms_per_update"] / res["latency_ms_median"]
     log("profile: " + json.dumps(prof))
+    return res, launches, mapped_state
+
+
+def check_launches(tag: str, launches: dict, updates: int, per_update: dict) -> None:
+    """Every registered kernel's launches in one path's run against the
+    count each update must make (0 for a kernel the path must not run)."""
+    if set(launches) != set(per_update):
+        raise AssertionError(f"{tag}: kernels {sorted(launches)}, expected {sorted(per_update)}")
+    for name, each in per_update.items():
+        if launches[name] != each * updates:
+            raise AssertionError(
+                f"{tag}: kernel {name} launched {launches[name]} times in {updates} updates, want {each} each"
+            )
+
+
+# ---------------------------------------------------------------------------
+# K2: the exact march
+# ---------------------------------------------------------------------------
+
+def march_inputs(state, cfg, n_rays: int, rng, gated: bool, pose: int = N_UPDATES + 1):
+    """K2's inputs as the exact cleanup builds them: the cell pack of
+    ``state``, the end points and validity of ``n_rays`` rays of the scene
+    seen from robot pose ``pose``, the sensor position, and the gate table
+    when ``gated``."""
+    from elevation_mapping_cupy_torch.ops import geometry, raycast
+
+    dev = state.layers.device
+    R, t, _ = robot_pose(pose)
+    pts = torch.from_numpy(scene_cloud(rng, n_rays, R, t)).to(dev)
+    t_c = torch.from_numpy(t).to(dev) - state.center
+    assoc = geometry.associate_points(
+        pts, torch.ones(n_rays, dtype=torch.bool, device=dev), torch.from_numpy(R).to(dev), t_c, cfg
+    )
+    pack = raycast.exact_precompute(state.layers, state.normal, torch.zeros_like(state.layers[0]), cfg)
+    gate = raycast.exact_gate(pack, cfg) if gated else None
+    return pack, assoc.world, assoc.valid, t_c, gate
+
+
+def check_march_case(state, cfg, rng, n_rays: int, gated: bool) -> dict:
+    """K2 against its plain version on the card at one shape; returns the
+    measured numbers."""
+    from elevation_mapping_cupy_torch.ops import cuda_march as cm
+
+    label = f"exact march N={n_rays} {'gated' if gated else 'ungated'}"
+    args = march_inputs(state, cfg, n_rays, rng, gated)
+    got = cm.exact_march(*args[:4], cfg, args[4])
+    work = {}
+    want = cm.exact_march_reference(*args[:4], cfg, args[4], work=work)
+    torch.cuda.synchronize()
+    if not torch.equal(got.hits, want.hits):
+        raise AssertionError(f"{label}: hit counts differ in {int((got.hits != want.hits).sum())} cells")
+    if not torch.equal(got.ubmin, want.ubmin):
+        raise AssertionError(f"{label}: upper bounds differ in {int((got.ubmin != want.ubmin).sum())} cells")
+    if gated and not torch.equal(got.counts, want.counts):
+        raise AssertionError(f"{label}: segment counts {got.counts.tolist()} vs {want.counts.tolist()}")
+    diff = (got.dec - want.dec).abs()
+    rel = float((diff / want.dec.abs().clamp(min=1.0)).max())
+    if not bool(torch.isfinite(got.dec).all()) or rel > VALUE_TOL:
+        raise AssertionError(f"{label}: decrement off by {rel} (relative) > {VALUE_TOL}")
+    n2, n = cfg.cell_n**2, n_rays
+    nb2 = args[4].table.numel() if gated else 0
+    # the pack's 7 values per cell, the points, their validity, t, the gate
+    # table, the three outputs and the two counts
+    bytes_moved = 4 * (7 * n2 + 3 * n + 3 + nb2 + 3 * n2) + n + (16 if gated else 0)
+    ops = sum(MARCH_OPS[key] * c for key, c in work.items())
+    bytes_ms, ops_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    res = {
+        "case": label, "rays": n, "gated": gated, "work": work,
+        "counts": got.counts.tolist() if gated else None,
+        "hit_cells": int((got.hits > 0).sum()), "hits": int(got.hits.sum()),
+        "ub_cells": int(torch.isfinite(got.ubmin).sum()),
+        "max_abs_err": float(diff.max()), "max_rel_err": rel,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "kernel_ms": _events_ms(lambda: cm.exact_march(*args[:4], cfg, args[4]), 20),
+        # the comparison above was the plain version's warm-up
+        "plain_ms": _events_ms(lambda: cm.exact_march_reference(*args[:4], cfg, args[4]), 1, warmup=0),
+        # no single PyTorch call computes a ray march, so there is no yardstick
+        "library_ms": None,
+    }
+    if res["hits"] == 0 or res["ub_cells"] == 0:
+        raise AssertionError(f"{label}: the case must both hit cells and write upper bounds: {res}")
+    log("kernel check: " + json.dumps(res))
+    return res
+
+
+def phase_march(cfg, mapped_state):
+    """K2 at the deployed shapes, on the main phase's map aged past the
+    recency gate (time >= 0.5) so that cells can be hit."""
+    from elevation_mapping_cupy_torch import core
+    from elevation_mapping_cupy_torch.ops import cuda_march as cm
+
+    ecfg = cfg.replace(raycast_mode="exact")
+    state = mapped_state
+    for _ in range(7):
+        state = core.update_time(state, ecfg)
+    rng = np.random.default_rng(4)
+    cases = {(n, g): check_march_case(state, ecfg, rng, n, g) for n in MARCH_RAYS for g in (True, False)}
+    # edge cases: no rays (no launch), every ray masked (a launch, no writes)
+    pack, world, valid, t, gate = march_inputs(state, ecfg, 4096, rng, True)
+    before = cm.KERNEL.launches
+    empty = cm.exact_march(pack, world[:0], valid[:0], t, ecfg, gate)
+    masked = cm.exact_march(pack, world, torch.zeros_like(valid), t, ecfg, gate)
+    torch.cuda.synchronize()
+    if cm.KERNEL.launches != before + 1:
+        raise AssertionError("K2: an empty march must not launch, a masked one must")
+    for tag, r in (("empty", empty), ("masked", masked)):
+        if r.counts.tolist() != [0, 0] or float(r.hits.sum()) != 0 or not bool(torch.isinf(r.ubmin).all()):
+            raise AssertionError(f"K2 {tag} march wrote something")
+    log("kernel check: exact march empty and all-masked: nothing written")
+    return cases
+
+
+def phase_exact(cfg, kernel_regs):
+    """The exact cleanup through ``ElevationMap.input_pointcloud`` with the
+    gated/flat router, compared with the CPU port on its last updates."""
+    from elevation_mapping_cupy_torch.mapper import ElevationMap
+    from elevation_mapping_cupy_torch.ops import raycast
+    from elevation_mapping_cupy_torch.state import state_from_numpy, state_to_numpy
+
+    ecfg = cfg.replace(raycast_mode="exact")
+    if raycast.resolve_exact_impl(ecfg) != "gated":
+        raise AssertionError("the deployed config's exact march must resolve to the routed gated march")
+    em = ElevationMap(ecfg, device="cuda")
+    cpu = ElevationMap(ecfg, device="cpu")
+    t0 = time.perf_counter()
+    warmed = em.warm_raycast_impls()
+    warm_s = time.perf_counter() - t0
+    if warmed != ["gated", "flat"]:
+        raise AssertionError(f"warm_raycast_impls ran {warmed}")
+    routes = []
+    rng = np.random.default_rng(5)
+
+    def step(k: int, n: int, compare: bool = False):
+        R, t, pos = robot_pose(k)
+        pts = scene_cloud(rng, n, R, t)
+        em.move_to(pos, R)
+        # the router decides from its own state alone: a copy tells which
+        # march this update takes, and hands the CPU rerun the same choice
+        routes.append(copy.deepcopy(em._exact_router).route())
+        if compare:
+            before, router = state_to_numpy(em.state), copy.deepcopy(em._exact_router)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        em.input_pointcloud(pts, ["x", "y", "z"], R, t, 0.0, 0.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stats = None
+        if compare:
+            cpu.state = state_from_numpy(before, "cpu")
+            cpu._exact_router = router
+            cpu.input_pointcloud(pts, ["x", "y", "z"], R, t, 0.0, 0.0)
+            stats = _compare_layers(f"exact update {k}", em.get_layers(LAYERS), cpu.get_layers(LAYERS))
+        em.update_time()  # age the map so that later rays can clean cells up
+        return dt, stats
+
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    lat, cmp_stats = [], []
+    for k in range(EXACT_UPDATES):
+        dt, stats = step(k, MAIN_POINTS, compare=k >= EXACT_UPDATES - EXACT_CMP_UPDATES)
+        lat.append(dt)
+        if stats:
+            cmp_stats.append(stats)
+    launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    check_launches("exact path", launches, EXACT_UPDATES, {"scatter_add_streams": 2, "exact_march": 1})
+    main_routes = list(routes)
+    lat_1m = [step(EXACT_UPDATES + k, 1_000_000)[0] for k in range(6)]
+    prof = profile_updates(em, rng, pose=EXACT_UPDATES + 5)
+    out = em.get_layers(LAYERS)
+    valid = out["is_valid"] > 0.5
+    if valid.mean() < 0.2 or not np.isfinite(out["elevation"][valid]).all():
+        raise AssertionError(f"implausible exact map: {valid.mean():.3f} of cells valid")
+    ms = np.array(lat) * 1e3
+    ms_1m = np.array(lat_1m[1:]) * 1e3
+    prof["device_busy_share_of_median_latency"] = prof["device_ms_per_update"] / float(np.median(ms))
+    log("exact profile: " + json.dumps(prof))
+    res = {
+        "updates": EXACT_UPDATES, "points": MAIN_POINTS, "warm_s": warm_s,
+        "latency_ms_median": float(np.median(ms)), "latency_ms_p90": float(np.percentile(ms, 90)),
+        "latency_ms": ms.tolist(), "routes": main_routes,
+        "latency_1m_ms_median": float(np.median(ms_1m)), "latency_1m_ms_p90": float(np.percentile(ms_1m, 90)),
+        "routes_1m": routes[len(main_routes):],
+        "last_gate_survivor_frac": float(em._exact_router._last_frac),
+        "launches": launches, "valid_share": float(valid.mean()), "cpu_compare": cmp_stats,
+    }
+    log("exact path: " + json.dumps(res))
     return res, launches
 
 
-def profile_updates(em, rng, n_updates: int = 5) -> dict:
+def phase_replay(cfg, kernel_regs):
+    """A 3-frame log through ``runtime.replay.replay`` on the card and on
+    the CPU (exact march)."""
+    from elevation_mapping_cupy_torch.runtime.replay import LogWriter, replay
+
+    rng = np.random.default_rng(6)
+    w = LogWriter(["x", "y", "z"])
+    for k in range(3):
+        R, t, pos = robot_pose(2 * k)
+        w.add(scene_cloud(rng, 20000, R, t), R, t, position=pos, stamp=0.1 * k)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "log.npz")
+        w.save(path)
+        for kern in kernel_regs.values():
+            kern.launches = 0
+        got = replay(path, cfg, snapshot_layers=LAYERS, raycast_mode="exact", device="cuda")
+        torch.cuda.synchronize()
+        launches = {name: kern.launches for name, kern in kernel_regs.items()}
+        want = replay(path, cfg, snapshot_layers=LAYERS, raycast_mode="exact", device="cpu")
+    check_launches("replay", launches, 3, {"scatter_add_streams": 2, "exact_march": 1})
+    stats = [_compare_layers(f"replay frame {i}", g, c) for i, (g, c) in enumerate(zip(got, want))]
+    log("replay: " + json.dumps({"frames": len(got), "launches": launches, "cpu_compare": stats}))
+
+
+def profile_updates(em, rng, n_updates: int = 5, pose: int = 300) -> dict:
     """Where one update's time goes: torch.profiler over back-to-back
-    updates of MAIN_POINTS points (clouds made beforehand, no map motion):
-    device time and device operations per update, the host clock under the
-    profiler, and the kernels that take the most device time."""
+    updates of MAIN_POINTS points seen from robot pose ``pose`` (clouds made
+    beforehand, no map motion): device time and device operations per
+    update, the host clock under the profiler, and the kernels that take
+    the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    R, t, _ = robot_pose(300)
+    R, t, _ = robot_pose(pose)
     clouds = [scene_cloud(rng, MAIN_POINTS, R, t) for _ in range(n_updates)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -414,9 +664,13 @@ def profile_updates(em, rng, n_updates: int = 5) -> dict:
     }
 
 
-def kernels_line(cases, launches, n_main: int) -> dict:
+def kernels_line(cases, launches, march_cases, exact_launches, n_main: int) -> dict:
     """One entry per kernel. K1's numbers are those of one update's three
-    launches at the main path's cloud size (error counting, fusion, cube)."""
+    launches at the main path's cloud size (error counting, fusion, cube)
+    and its launches on the polar main path; K2's are those of the gated
+    march of n_main rays (the router's first choice) and its launches on
+    the exact path."""
+    march = march_cases[(n_main, True)]
     shapes = [cases[(c, n_main)] for c in ("count", "fusion", "cube")]
     total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
     return {
@@ -435,18 +689,45 @@ def kernels_line(cases, launches, n_main: int) -> dict:
                 "bound_ms": total("bound_ms"),
                 "bound_by": "bytes",
                 "library_ms": total("library_ms"),
-            }
+            },
+            {
+                "name": "exact_march",
+                "route": "cuda",
+                "source": "elevation_mapping_cupy_torch/csrc/exact_march.cu",
+                "replaces": "scripts/probe_pallas_gather.py:38",
+                "function": "k_take, k_take2, k_scat, k_smin, k_sort, k_taa, k_taa2, k_take2d",
+                "checked": True,
+                "launches": exact_launches["exact_march"],
+                "max_abs_err": max(c["max_abs_err"] for c in march_cases.values()),
+                "ms": march["kernel_ms"],
+                "plain_ms": march["plain_ms"],
+                "bound_ms": march["bound_ms"],
+                "bound_by": march["bound_by"],
+                "library_ms": None,
+            },
         ]
     }
 
 
 def main() -> int:
+    t0 = time.perf_counter()
+
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {phase}: {time.perf_counter() - t:.1f} s")
+        return out
+
     name, count, smi = phase_device()
-    regs = phase_build()
+    regs = timed("build", phase_build)
     cfg = deployed_config()
-    cases = phase_kernels(cfg)
-    _, launches = phase_main(cfg, regs)
-    print(json.dumps(kernels_line(cases, launches, MAIN_POINTS)))
+    cases = timed("kernels", phase_kernels, cfg)
+    _, launches, mapped_state = timed("main", phase_main, cfg, regs)
+    march_cases = timed("march", phase_march, cfg, mapped_state)
+    _, exact_launches = timed("exact", phase_exact, cfg, regs)
+    timed("replay", phase_replay, cfg, regs)
+    log(f"total: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps(kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

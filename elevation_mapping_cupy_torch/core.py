@@ -4,12 +4,13 @@ PyTorch counterpart of ``elevation_mapping_cupy_tpu/core.py`` without the
 semantic and image paths (later slices). Every function takes a
 ``MapState`` and returns a new one; the input state's tensors are not
 written. The state's device decides where the work runs: on a CUDA state
-the scatters launch kernel K1, on a CPU state they take its plain version.
+the scatters launch kernel K1 and the exact cleanup kernel K2, on a CPU
+state they take their plain versions.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -23,6 +24,7 @@ from .state import MapState
 
 __all__ = [
     "update_pointcloud",
+    "update_pointcloud_aux",
     "move_to",
     "move",
     "shift_map_xy",
@@ -60,6 +62,38 @@ def update_pointcloud(
     averaging -> overlap clearance -> dilation -> traversability CNN ->
     normals.
     """
+    return _update_impl(state, points, pad_mask, R, t, position_noise, orientation_noise, weights, cfg)[0]
+
+
+@torch.no_grad()
+def update_pointcloud_aux(
+    state: MapState,
+    points: torch.Tensor,
+    pad_mask: torch.Tensor,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    position_noise: Scalar,
+    orientation_noise: Scalar,
+    weights: TravFilter,
+    cfg: MapConfig,
+) -> Tuple[MapState, Dict[str, torch.Tensor]]:
+    """``update_pointcloud`` plus the cleanup's aux dict: ``gate_survivor_frac``
+    (0-d tensor), the gated march's segment survivor fraction and 1.0 for
+    every other cleanup, which feeds ``ops.raycast.AdaptiveExactRouter``."""
+    return _update_impl(state, points, pad_mask, R, t, position_noise, orientation_noise, weights, cfg)
+
+
+def _update_impl(
+    state: MapState,
+    points: torch.Tensor,
+    pad_mask: torch.Tensor,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    position_noise: Scalar,
+    orientation_noise: Scalar,
+    weights: TravFilter,
+    cfg: MapConfig,
+) -> Tuple[MapState, Dict[str, torch.Tensor]]:
     dev, dt = state.layers.device, state.layers.dtype
     position_noise = torch.as_tensor(position_noise, dtype=dt, device=dev)
     orientation_noise = torch.as_tensor(orientation_noise, dtype=dt, device=dev)
@@ -82,7 +116,9 @@ def update_pointcloud(
     )
     # fusion decisions read the drift-compensated snapshot (R1)
     layers, newmap = pc.point_fusion(layers, assoc, counts.point_cnt, cfg, cell_rows, h_delta)
-    layers = rc.visibility_cleanup(layers, state.normal, assoc, counts.inlier_cnt, t_c, cfg)
+    layers, ray_aux = rc.visibility_cleanup(
+        layers, state.normal, assoc, counts.inlier_cnt, t_c, cfg, with_aux=True
+    )
     layers = pc.average_map(layers, newmap, cfg)
 
     if cfg.enable_overlap_clearance:
@@ -90,12 +126,13 @@ def update_pointcloud(
     trav_input, _ = stencil.dilation_fill(layers[5], layers[2] + layers[6], cfg.dilation_size)
     layers = _apply_traversability(layers, trav_input, weights)
     normal = stencil.surface_normals(trav_input, layers[2], cfg.resolution)
-    return state._replace(
+    out = state._replace(
         layers=layers,
         normal=normal,
         mean_error=mean_error,
         additive_mean_error=additive,
     )
+    return out, ray_aux
 
 
 def _apply_traversability(layers: torch.Tensor, trav_input: torch.Tensor, weights: TravFilter) -> torch.Tensor:

@@ -21,6 +21,7 @@ import torch
 from . import core
 from .config import DEFAULT_CORE_LAYERS, MapConfig
 from .nn.traversability import DEFAULT_WEIGHT_FILE, TravFilter, default_weights, load_weights_npz
+from .ops.raycast import AdaptiveExactRouter
 from .state import MapState, init_state, state_from_numpy, state_to_numpy
 
 __all__ = ["ElevationMap", "resolve_device"]
@@ -108,6 +109,9 @@ class ElevationMap:
                 weights = default_weights()
         self.weights = weights.to(self.device)
         self.state = init_state(cfg, self.device)
+        # gated/flat routing of the exact cleanup (raycast_exact_impl="auto"):
+        # the last gated update's survivor fraction routes the next update
+        self._exact_router = AdaptiveExactRouter(cfg)
 
     # ------------------------------------------------------------------ util
     @property
@@ -158,7 +162,9 @@ class ElevationMap:
         orientation_noise: float,
     ) -> None:
         """channels: names of all columns; only x, y, z are taken so far
-        (semantic channels come with a later slice of the port)."""
+        (semantic channels come with a later slice of the port). With
+        raycast_exact_impl="auto" on an exact-march config, the router picks
+        the gated or the flat march for this update."""
         raw_points = np.asarray(raw_points, np.float32)
         if len(channels) != raw_points.shape[1]:
             raise ValueError(
@@ -172,17 +178,38 @@ class ElevationMap:
             )
         raw_points = raw_points[~np.isnan(raw_points[:, :3]).any(axis=1)]
         pts, mask = self._pad_points(raw_points)
-        self.state = core.update_pointcloud(
-            self.state,
-            pts,
-            mask,
-            self._tensor(R),
-            self._tensor(t),
-            float(position_noise),
-            float(orientation_noise),
-            self.weights,
-            self.cfg,
-        )
+        args = (self.state, pts, mask, self._tensor(R), self._tensor(t),
+                float(position_noise), float(orientation_noise), self.weights)
+        impl = self._exact_router.route()
+        if impl is None:
+            self.state = core.update_pointcloud(*args, self.cfg)
+        else:
+            self.state, aux = core.update_pointcloud_aux(*args, self.cfg.replace(raycast_exact_impl=impl))
+            self._exact_router.observe(impl, aux["gate_survivor_frac"])
+
+    def warm_raycast_impls(self, n_points: Optional[int] = None) -> List[str]:
+        """Run both routed exact cleanups (gated, then flat) once, on a
+        throwaway state with the padded bucket of ``n_points`` (default
+        cfg.max_points), so that the first live update finds everything it
+        needs (on the card: K1 and K2 built and loaded). Returns the impls
+        run, [] when routing is inactive. The map's state is not touched."""
+        if not self._exact_router._eligible:
+            return []
+        m = self._bucket(n_points or self.cfg.max_points)
+        pts = torch.zeros((m, 3), dtype=torch.float32, device=self.device)
+        mask = torch.zeros((m,), dtype=torch.bool, device=self.device)
+        R = torch.eye(3, device=self.device)
+        t = torch.zeros(3, device=self.device)
+        warmed = []
+        for impl in ("gated", "flat"):
+            cfg_step = self.cfg.replace(raycast_exact_impl=impl)
+            core.update_pointcloud_aux(
+                init_state(cfg_step, self.device), pts, mask, R, t, 0.0, 0.0, self.weights, cfg_step
+            )
+            warmed.append(impl)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return warmed
 
     def update_variance(self) -> None:
         self.state = core.update_variance(self.state, self.cfg)

@@ -1,0 +1,322 @@
+"""K2 ``exact_march``: the exact visibility-cleanup ray march as one kernel.
+
+Counterpart of the march loops of ``elevation_mapping_cupy_tpu/ops/raycast.py``
+(``_exact_scan``, ``_exact_flat``, ``_exact_gated``) and of the in-kernel
+gather, scatter-add, scatter-min and sort that
+``scripts/probe_pallas_gather.py`` probed for them on the TPU. The CUDA
+kernel is ``csrc/exact_march.cu``; its source note gives the design and the
+bound. :func:`exact_march` launches it for CUDA tensors and raises if it
+cannot; for CPU tensors it runs :func:`exact_march_reference`, the plain
+PyTorch version (the scan's step loop), which the tests hold to the JAX
+package.
+
+Inputs, built by ``ops/raycast.py``:
+
+- ``pack`` (n*n, 8) float32 cell rows of the R1 snapshot: height,
+  penetration slack ``min(var, 1) * 0.05``, upper-bound threshold (+inf
+  without an upper bound), code (1 invalid, 2 eligible to be cleaned up,
+  0 neither), normal x, y, z, and a zero pad;
+- ``world`` (N, 3) ray end points and ``valid`` (N,) bool (a ray that is not
+  valid is not marched), both in the map-center frame;
+- ``t`` (3,) sensor position in the map-center frame;
+- ``gate``: optional :class:`Gate`.
+
+Each ray's direction, decrement and live-step count come from ``world`` and
+``t`` (:func:`ray_table`); step m samples the ray at
+``s_m = (m + 1) * ray_step``.
+
+Outputs (:class:`MarchResult`): per cell the summed decrement, the number
+of hits (an integer in float32), the lowest upper-bound candidate (+inf
+where none was written) and, with a gate, the surviving and live segment
+counts (int64).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import MapConfig
+from ..kernels import CudaKernel
+from .geometry import cell_indices, fma32, is_inside, sqrt32, true_div
+
+__all__ = [
+    "KERNEL",
+    "PACK_WIDTH",
+    "Gate",
+    "MarchResult",
+    "exact_march",
+    "exact_march_reference",
+    "ray_steps",
+    "ray_table",
+]
+
+KERNEL = CudaKernel(
+    "exact_march.cu",
+    "exact_march",
+    [ctypes.c_void_p] * 9
+    + [ctypes.c_int64, ctypes.c_int32, ctypes.c_float, ctypes.c_float, ctypes.c_int32,
+       ctypes.c_float, ctypes.c_float, ctypes.c_float,
+       ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_float, ctypes.c_void_p],
+)
+
+# floats per cell row of the pack: seven values and a pad, so that the
+# kernel reads a row as two 16-byte loads
+PACK_WIDTH = 8
+# sqrt(float32(0.1)) rounded once to float32 (a float64 root rounded to
+# float32 is the correctly rounded float32 root): the endpoint test's reach
+_ROOT_01 = math.sqrt(float(torch.tensor(0.1, dtype=torch.float32)))
+
+
+class Gate(NamedTuple):
+    """Segment gate of the gated march: ``table`` (nb*nb,) float32 holds,
+    per block of ``block`` x ``block`` cells, the 3x3-dilated block max of
+    the cell write threshold; a segment of ``seg`` steps whose lowest sample
+    is not below ``table + eps`` at the block of its first sample holds no
+    writer and is skipped."""
+
+    table: torch.Tensor
+    seg: int
+    block: int
+    eps: float
+
+
+class MarchResult(NamedTuple):
+    dec: torch.Tensor                      # (n*n,) float32 summed decrement
+    hits: torch.Tensor                     # (n*n,) float32 hit count
+    ubmin: torch.Tensor                    # (n*n,) float32, +inf where unwritten
+    counts: Optional[torch.Tensor] = None  # (2,) int64 [surviving, live] segments
+
+
+def ray_steps(cfg: MapConfig, device) -> torch.Tensor:
+    """(n_ray_steps,) float32 sample distances ``(m + 1) * ray_step``,
+    rounded as the JAX package rounds them."""
+    step = torch.tensor(cfg.ray_step, dtype=torch.float32, device=device)
+    return torch.arange(1, cfg.n_ray_steps + 1, dtype=torch.float32, device=device) * step
+
+
+def _fma(a, b, c):
+    """a * b + c rounded as XLA:CPU rounds it for float32; other dtypes
+    (the scan's float64 maps) are not held to the JAX package's bits."""
+    return fma32(a, b, c) if a.dtype == torch.float32 else a * b + c
+
+
+def ray_table(
+    world: torch.Tensor, valid: torch.Tensor, t: torch.Tensor, cfg: MapConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version's per-ray table (7, N) (direction, end point,
+    decrement) and live-step count k (N,) int32, as ``_exact_flat`` builds
+    them (raycast.py:382-400); K2 computes the same per thread.
+
+    k counts the steps with ``s_m < ray_length`` and
+    ``s_m <= norm - sqrt(0.1) + step`` (past which the endpoint test
+    ``d >= 0.1`` rejects every sample, so the cut changes no result) by the
+    same float32 compares as the JAX package (``searchsorted`` over the same
+    steps vector, same sides). Rays that are not valid get k = 0."""
+    dt = world.dtype
+    v = world - t
+    # jnp.linalg.norm as XLA:CPU compiles it: a reduction of fused
+    # multiply-adds and a correctly rounded root
+    sq = v[:, 0] * v[:, 0]
+    if dt == torch.float32:
+        norm = sqrt32(fma32(v[:, 2], v[:, 2], fma32(v[:, 1], v[:, 1], sq)))
+    else:  # the scan's other dtypes are not held to the JAX package's bits
+        norm = torch.sqrt(v[:, 2] * v[:, 2] + (v[:, 1] * v[:, 1] + sq))
+    rdir = torch.where(norm[:, None] > 0, v / torch.clamp(norm, min=1e-30)[:, None], 0.0)
+    ray_length = torch.clamp(norm, max=cfg.max_ray_length)
+    dec_amount = torch.full_like(ray_length, cfg.cleanup_step) / true_div(ray_length, cfg.max_ray_length)
+    steps = ray_steps(cfg, world.device).to(dt)
+    step = torch.tensor(cfg.ray_step, dtype=dt, device=world.device)
+    end = norm - torch.tensor(_ROOT_01, dtype=dt, device=world.device) + step
+    k = torch.minimum(
+        torch.searchsorted(steps, ray_length.contiguous(), side="left"),
+        torch.searchsorted(steps, end.contiguous(), side="right"),
+    )
+    k = torch.where(valid, k, 0).to(torch.int32)
+    rays = torch.stack([rdir[:, 0], rdir[:, 1], rdir[:, 2], world[:, 0], world[:, 1], world[:, 2], dec_amount])
+    return rays, k
+
+
+def _check(pack, world, valid, t, cfg: MapConfig, gate: Optional[Gate]) -> None:
+    n2 = cfg.cell_n * cfg.cell_n
+    if pack.shape != (n2, PACK_WIDTH):
+        raise ValueError(f"pack must be ({n2}, {PACK_WIDTH}); got {tuple(pack.shape)}")
+    if world.dim() != 2 or world.shape[1] != 3 or valid.shape != (world.shape[0],):
+        raise ValueError(f"world must be (N, 3) and valid (N,); got {tuple(world.shape)} and {tuple(valid.shape)}")
+    if t.shape != (3,):
+        raise ValueError(f"t must be (3,); got {tuple(t.shape)}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"valid must be bool; got {valid.dtype}")
+    tensors = [pack, world, valid, t] + ([gate.table] if gate is not None else [])
+    if len({x.device for x in tensors}) != 1:
+        raise ValueError("the march's tensors must lie on one device")
+    if gate is not None:
+        nb = -(-cfg.cell_n // gate.block)
+        if gate.table.shape != (nb * nb,):
+            raise ValueError(f"gate table must be ({nb * nb},); got {tuple(gate.table.shape)}")
+
+
+def _segment_survives(rays, m0: int, m1, t, gate: Gate, steps, cfg: MapConfig) -> torch.Tensor:
+    """Gate test of the segments [m0, m1) of the rays ``rays`` (7, L)
+    (``m1`` (L,) exclusive ends): True where the segment may hold a writer
+    (``_exact_gated``'s test, raycast.py:801-810)."""
+    s_lo = steps[m0]
+    s_hi = steps[(m1 - 1).long()]
+    xy0 = torch.stack([_fma(rays[0], s_lo, t[0]), _fma(rays[1], s_lo, t[1])], dim=-1)
+    nz_min = torch.minimum(_fma(rays[2], s_lo, t[2]), _fma(rays[2], s_hi, t[2]))
+    ix, iy = cell_indices(xy0, torch.zeros(2, dtype=rays.dtype, device=rays.device), cfg)
+    nb = -(-cfg.cell_n // gate.block)
+    g = gate.table[((ix // gate.block) * nb + iy // gate.block).long()]
+    return nz_min < g + gate.eps
+
+
+def _tally(work: Optional[Dict[str, int]], **counts) -> None:
+    if work is not None:
+        for key, c in counts.items():
+            work[key] = work.get(key, 0) + int(c)
+
+
+def exact_march_reference(
+    pack: torch.Tensor,
+    world: torch.Tensor,
+    valid: torch.Tensor,
+    t: torch.Tensor,
+    cfg: MapConfig,
+    gate: Optional[Gate] = None,
+    work: Optional[Dict[str, int]] = None,
+) -> MarchResult:
+    """Plain PyTorch version: the step loop of ``_exact_scan``
+    (raycast.py:257-312) over the rays still live at each step, with the
+    segment gate of ``_exact_gated`` applied at each segment's first step
+    when a gate is given. Per-sample arithmetic is the JAX package's as XLA
+    compiles it on the CPU, FMAs included (:func:`fma32`); only the order of
+    the decrement's additions differs.
+
+    ``work``, when given, gets the number of valid rays and tested segments,
+    and of samples at each rule the march applies: walked (every sample of
+    a ray's live steps, or of the segments that pass the gate), fresh (in
+    the map and in a cell the previous step was not in), tested (past the
+    endpoint test, so the cell row is read), eligible (on a cell that can
+    be cleaned up), penetrating, hits and upper-bound writes. A bound on the
+    kernel's time is counted from these."""
+    _check(pack, world, valid, t, cfg, gate)
+    n = cfg.cell_n
+    dev, dt = pack.device, pack.dtype
+    dec = torch.zeros(n * n, dtype=dt, device=dev)
+    hits = torch.zeros(n * n, dtype=dt, device=dev)
+    ubmin = torch.full((n * n,), math.inf, dtype=dt, device=dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev) if gate is not None else None
+    n_rays = world.shape[0]
+    _tally(work, rays=valid.sum() if n_rays else 0)
+    if n_rays == 0:
+        return MarchResult(dec, hits, ubmin, counts)
+    rays, k = ray_table(world, valid, t, cfg)
+    k_max = int(k.max())
+    if k_max == 0:
+        return MarchResult(dec, hits, ubmin, counts)
+
+    # longest rays first: the rays live at step m are then a prefix
+    order = torch.argsort(k, descending=True, stable=True)
+    ks = k[order].long()
+    rr = rays[:, order]
+    ended = torch.cumsum(torch.bincount(ks, minlength=k_max + 1), 0)
+    n_live = (n_rays - ended[:k_max]).tolist()   # rays with k > m, per step m
+    steps = ray_steps(cfg, dev).to(dt)
+    zero2 = torch.zeros(2, dtype=dt, device=dev)
+
+    def position(axis, s, live):
+        return _fma(rr[axis, :live], s, t[axis])
+
+    def cells(s, live):
+        xy = torch.stack([position(0, s, live), position(1, s, live)], dim=-1)
+        ix, iy = cell_indices(xy, zero2, cfg)
+        return n * ix + iy, ix, iy
+
+    survive = None
+    for m in range(k_max):
+        live = n_live[m]
+        if gate is not None and m % gate.seg == 0:
+            m1 = torch.clamp(ks[:live], max=m + gate.seg)
+            survive = _segment_survives(rr[:, :live], m, m1, t, gate, steps, cfg)
+            counts[0] += survive.sum()
+            counts[1] += live
+            _tally(work, segments=live)
+        s = steps[m]
+        nidx, ix, iy = cells(s, live)
+        fresh = is_inside(ix, iy, cfg)
+        if m > 0:
+            fresh &= nidx != cells(steps[m - 1], live)[0]
+        if survive is not None:
+            fresh &= survive[:live]
+        nz = position(2, s, live)
+        ex = rr[3, :live] - position(0, s, live)
+        ey = rr[4, :live] - position(1, s, live)
+        ez = rr[5, :live] - nz
+        active = fresh & (_fma(ez, ez, _fma(ey, ey, ex * ex)) >= 0.1)
+        _tally(work, walked=live if survive is None else survive[:live].sum(), fresh=fresh.sum())
+        sel = torch.nonzero(active).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        cell = nidx[sel].long()
+        nz = nz[sel]
+        row = pack[cell]
+        ub_cond = nz < row[:, 2]
+        eligible = row[:, 3] == 2.0
+        penet = row[:, 0] > nz + 0.01 - row[:, 1]
+        product = _fma(rr[2, sel], row[:, 6], _fma(rr[0, sel], row[:, 4], rr[1, sel] * row[:, 5]))
+        hit = eligible & penet & (torch.abs(product) >= cfg.cleanup_cos_thresh)
+        write_ub = ((row[:, 3] == 1.0) | hit) & ub_cond
+        _tally(work, tested=sel.numel(), eligible=eligible.sum(), penetrating=(eligible & penet).sum(),
+               hits=hit.sum(), ub_writes=write_ub.sum())
+        dec.index_add_(0, cell[hit], rr[6, sel][hit])
+        hits.index_add_(0, cell[hit], torch.ones_like(nz[hit]))
+        ubmin.scatter_reduce_(0, cell[write_ub], nz[write_ub], reduce="amin")
+    return MarchResult(dec, hits, ubmin, counts)
+
+
+def exact_march(
+    pack: torch.Tensor,
+    world: torch.Tensor,
+    valid: torch.Tensor,
+    t: torch.Tensor,
+    cfg: MapConfig,
+    gate: Optional[Gate] = None,
+) -> MarchResult:
+    """The exact march: see :func:`exact_march_reference` for the contract.
+    CUDA tensors go to the kernel; CPU tensors to the plain version."""
+    _check(pack, world, valid, t, cfg, gate)
+    if pack.device.type == "cpu":
+        return exact_march_reference(pack, world, valid, t, cfg, gate)
+    if pack.device.type != "cuda":
+        raise ValueError(f"exact_march runs on cuda or cpu tensors, not {pack.device}")
+    tensors = [pack, world, t] + ([gate.table] if gate is not None else [])
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise TypeError("exact_march's kernel takes float32 pack, world, t and gate table")
+    n = cfg.cell_n
+    dev = pack.device
+    pack, world, valid, t = (x.contiguous() for x in (pack, world, valid, t))
+    dec = torch.zeros(n * n, dtype=torch.float32, device=dev)
+    hits = torch.zeros(n * n, dtype=torch.float32, device=dev)
+    ubmin = torch.full((n * n,), math.inf, dtype=torch.float32, device=dev)
+    counts = None
+    gate_ptr, counts_ptr, seg, block, nb, eps = None, None, 0, 0, 0, 0.0
+    if gate is not None:
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        table = gate.table.contiguous()
+        gate_ptr, counts_ptr = table.data_ptr(), counts.data_ptr()
+        seg, block, eps = gate.seg, gate.block, gate.eps
+        nb = -(-n // block)
+    if world.shape[0] == 0:
+        return MarchResult(dec, hits, ubmin, counts)
+    with torch.cuda.device(dev):
+        KERNEL.launch(
+            pack.data_ptr(), world.data_ptr(), valid.data_ptr(), t.data_ptr(), gate_ptr,
+            dec.data_ptr(), hits.data_ptr(), ubmin.data_ptr(), counts_ptr,
+            world.shape[0], n, cfg.resolution, cfg.ray_step, cfg.n_ray_steps,
+            cfg.max_ray_length, cfg.cleanup_step, cfg.cleanup_cos_thresh,
+            seg, block, nb, eps, torch.cuda.current_stream().cuda_stream,
+        )
+    return MarchResult(dec, hits, ubmin, counts)

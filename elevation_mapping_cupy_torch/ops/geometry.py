@@ -11,6 +11,7 @@ border are "outside" (is_inside == False).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -19,6 +20,8 @@ from ..config import MapConfig
 
 __all__ = [
     "true_div",
+    "fma32",
+    "sqrt32",
     "cell_indices",
     "is_inside",
     "flat_cell_index",
@@ -39,6 +42,45 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     across cell edges. Dividing by a 0-d tensor on the same device keeps the
     true division on every device."""
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` on float32 tensors, rounded once, as a fused multiply-add.
+
+    XLA:CPU contracts some of the JAX package's multiply-adds into FMAs (the
+    exact march's sample positions, its squared distances and dot products,
+    the ray norm's reduction), and the CUDA kernel does the same with
+    ``fmaf``; PyTorch has no FMA operator. This one is exact on every
+    device: the product is exact in float64, the float64 sum's rounding
+    error is recovered with TwoSum and folded in by rounding to odd, after
+    which rounding to float32 is the single correct rounding."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    even = (s.contiguous().view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root of a float32 tensor of values >= 0.
+
+    PyTorch's vectorised CPU ``sqrt`` is not correctly rounded (about 0.7 %
+    of float32 results are an ulp off) while XLA's and CUDA's are. The
+    float64 root is within an ulp of float64; the float32 candidate is then
+    moved by one ulp wherever the midpoint to its neighbour, squared (exact
+    in float64), shows that the true root lies on the other side."""
+    r = torch.sqrt(x.double()).to(torch.float32)
+    xd = x.double()
+    pos = x > 0
+    for direction, wrong_side in ((-math.inf, torch.gt), (math.inf, torch.lt)):
+        other = torch.nextafter(r, torch.full_like(r, direction))
+        mid = (r.double() + other.double()) * 0.5
+        r = torch.where(pos & wrong_side(mid * mid, xd), other, r)
+    return r
 
 
 def _axis_index(coord: torch.Tensor, center: torch.Tensor, cfg: MapConfig) -> torch.Tensor:

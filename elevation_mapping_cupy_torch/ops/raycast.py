@@ -1,10 +1,14 @@
-"""Ray-cast visibility cleanup: the polar shadow-cube formulation.
+"""Ray-cast visibility cleanup: the polar shadow cube and the exact march.
 
 PyTorch counterpart of ``elevation_mapping_cupy_tpu/ops/raycast.py``:
-``resolve_raycast_mode``, the ``visibility_cleanup`` dispatcher and
-``visibility_cleanup_polar``. The exact per-step march (the JAX package's
-``visibility_cleanup_exact``) is slice 2 of the port (ROADMAP.md, queue A)
-and raises here.
+``resolve_raycast_mode``, the ``visibility_cleanup`` dispatcher,
+``visibility_cleanup_polar``, ``visibility_cleanup_exact`` with its three
+implementations (``scan``, ``flat``, ``gated``) and ``AdaptiveExactRouter``.
+The three exact implementations are one kernel here, K2
+(``ops/cuda_march.py``): ``scan`` and ``flat`` are the same launch without a
+gate (every ray's steps end where the endpoint test starts to reject every
+sample, which the JAX scan walks to no effect), ``gated`` has the segment
+gate.
 
 Race resolutions R1 (snapshot reads) and R3 (min-height upper-bound write)
 per tests/golden/reference_numpy.py.
@@ -13,17 +17,24 @@ per tests/golden/reference_numpy.py.
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..config import MapConfig
-from . import scatter
+from . import cuda_march, scatter
 from .geometry import PointAssociation, true_div
 
 __all__ = [
     "visibility_cleanup",
+    "visibility_cleanup_exact",
     "visibility_cleanup_polar",
     "resolve_raycast_mode",
+    "resolve_exact_impl",
+    "exact_precompute",
+    "exact_gate",
+    "AdaptiveExactRouter",
 ]
 
 # `auto` picks the exact march only when it is at most this many steps and
@@ -31,6 +42,20 @@ __all__ = [
 # defaults for the same decision, raycast.py:54-55)
 _AUTO_MAX_STEPS = 12
 _AUTO_WORK_RATIO = 8
+# exact impl `auto` picks the gated march once n_steps * max_points reaches
+# this, the scan below it (raycast.py:56)
+_FLAT_MIN_SAMPLES = 1 << 20
+# gated march: steps per segment (C), cells per gate block (B) and the slack
+# of the gate's comparison (raycast.py:66-67, 704). A segment spans at most
+# (C - 1) * res / sqrt(2) = 4.95 cells, within the one-block reach of the
+# 3x3 block dilation.
+_GATE_SEG = 8
+_GATE_BLOCK = 8
+_GATE_EPS = 2e-4
+# AdaptiveExactRouter: survivor fraction that routes the next update to the
+# flat march, and the probe period's cap (raycast.py:83-84)
+_GATE_SURV_ROUTE = 0.8
+_GATE_PROBE_PERIOD = 8
 
 
 def resolve_raycast_mode(cfg: MapConfig) -> str:
@@ -49,6 +74,22 @@ def resolve_raycast_mode(cfg: MapConfig) -> str:
     )
 
 
+def resolve_exact_impl(cfg: MapConfig) -> str:
+    """cfg.raycast_exact_impl with "auto" resolved: gated once the dense
+    march reaches _FLAT_MIN_SAMPLES samples, scan below (raycast.py:166-176)."""
+    impl = cfg.raycast_exact_impl
+    if impl == "auto":
+        return "gated" if cfg.n_ray_steps * cfg.max_points >= _FLAT_MIN_SAMPLES else "scan"
+    if impl not in ("scan", "flat", "gated"):
+        raise ValueError(f"unknown raycast_exact_impl {impl!r}")
+    return impl
+
+
+def _no_gate_aux(layers: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Aux of a cleanup that runs no gate: "everything survives"."""
+    return {"gate_survivor_frac": torch.ones((), dtype=layers.dtype, device=layers.device)}
+
+
 def visibility_cleanup(
     layers: torch.Tensor,
     normal: torch.Tensor,
@@ -56,19 +97,180 @@ def visibility_cleanup(
     inlier_cnt: torch.Tensor,
     t: torch.Tensor,
     cfg: MapConfig,
-) -> torch.Tensor:
-    """Dispatch on cfg.raycast_mode ("polar" / "exact" / "auto")."""
+    with_aux: bool = False,
+):
+    """Dispatch on cfg.raycast_mode ("polar" / "exact" / "auto").
+
+    With ``with_aux=True`` returns ``(layers, aux)``; aux's
+    ``gate_survivor_frac`` (0-d tensor) is the gated march's segment
+    survivor fraction, 1.0 for every other path, the signal
+    :class:`AdaptiveExactRouter` routes on."""
     if not cfg.enable_visibility_cleanup or cfg.n_ray_steps <= 0:
-        return layers
+        return (layers, _no_gate_aux(layers)) if with_aux else layers
     mode = resolve_raycast_mode(cfg)
     if mode == "polar":
-        return visibility_cleanup_polar(layers, normal, assoc, inlier_cnt, t, cfg)
+        out = visibility_cleanup_polar(layers, normal, assoc, inlier_cnt, t, cfg)
+        return (out, _no_gate_aux(layers)) if with_aux else out
     if mode == "exact":
-        raise NotImplementedError(
-            "raycast_mode 'exact' (the per-step ray march) is not ported yet: it is "
-            "slice 2 of ROADMAP.md queue A; use raycast_mode='polar'"
-        )
+        return visibility_cleanup_exact(layers, normal, assoc, inlier_cnt, t, cfg, with_aux=with_aux)
     raise ValueError(f"unknown raycast_mode {cfg.raycast_mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# exact march
+# ---------------------------------------------------------------------------
+
+def exact_precompute(
+    layers: torch.Tensor, normal: torch.Tensor, inlier_cnt: torch.Tensor, cfg: MapConfig
+) -> torch.Tensor:
+    """(n*n, 8) cell rows of the R1 snapshot (raycast.py:193-222): height,
+    penetration slack min(var, 1) * 0.05, upper-bound threshold (+inf where
+    the cell has no upper bound), code (1 invalid, 2 eligible to be hit, 0
+    neither), normal x, y, z, and a zero pad (K2 reads a row as two 16-byte
+    loads). Selections only, so every comparison the march makes on it is
+    the inline one."""
+    snap = layers.reshape(7, -1)
+    nrm = normal.reshape(3, -1)
+    ic = inlier_cnt.reshape(-1)
+    q = torch.clamp(snap[1], max=1.0) * 0.05
+    ub_thresh = torch.where(snap[6] < 0.5, math.inf, snap[5])
+    is_invalid = snap[2] < 0.5
+    hit_ok = ~is_invalid & (snap[4] >= 0.5) & ~((ic > cfg.wall_num_thresh) & (snap[4] < 1.0))
+    code = torch.where(is_invalid, 1.0, torch.where(hit_ok, 2.0, 0.0)).to(snap.dtype)
+    pad = torch.zeros_like(q)
+    return torch.stack([snap[0], q, ub_thresh, code, nrm[0], nrm[1], nrm[2], pad], dim=1)
+
+
+def exact_gate(pack: torch.Tensor, cfg: MapConfig) -> cuda_march.Gate:
+    """Gate table of ``_exact_gated`` (raycast.py:689-704): per cell the
+    height below which a sample can write (the upper bound of an invalid
+    cell, the penetration threshold of an eligible one, -inf otherwise and
+    on the border), its max over blocks of B x B cells, dilated by the 3x3
+    block neighbourhood."""
+    n = cfg.cell_n
+    B = _GATE_BLOCK
+    zgate = torch.where(
+        pack[:, 3] == 1.0,
+        pack[:, 2],
+        torch.where(pack[:, 3] == 2.0, pack[:, 0] - 0.01 + pack[:, 1], -math.inf),
+    ).reshape(n, n)
+    nb = -(-n // B)
+    zpad = torch.full((nb * B, nb * B), -math.inf, dtype=pack.dtype, device=pack.device)
+    zpad[1 : n - 1, 1 : n - 1] = zgate[1:-1, 1:-1]   # the border never writes
+    blkmax = zpad.reshape(nb, B, nb, B).amax(dim=(1, 3))
+    table = F.max_pool2d(blkmax[None, None], 3, stride=1, padding=1)[0, 0]
+    return cuda_march.Gate(table.reshape(-1).contiguous(), _GATE_SEG, B, _GATE_EPS)
+
+
+def visibility_cleanup_exact(
+    layers: torch.Tensor,
+    normal: torch.Tensor,
+    assoc: PointAssociation,
+    inlier_cnt: torch.Tensor,
+    t: torch.Tensor,
+    cfg: MapConfig,
+    with_aux: bool = False,
+):
+    """Exact visibility cleanup (raycast.py:142-190): every ray marched in
+    steps of res/sqrt(2), each fresh sample in a cell it penetrates
+    decrementing the cell's validity and adding to its variance, samples
+    below an invalid cell's upper bound lowering it. One K2 launch; the
+    gated march also returns its segment survivor fraction in aux (0.0 on an
+    empty march, raycast.py:906-914)."""
+    if not cfg.enable_visibility_cleanup or cfg.n_ray_steps <= 0:
+        return (layers, _no_gate_aux(layers)) if with_aux else layers
+    impl = resolve_exact_impl(cfg)
+    if impl != "scan" and layers.dtype.itemsize != 4:
+        raise TypeError(
+            f"the {impl} exact march requires a 32-bit layer dtype (got {layers.dtype}); "
+            "use raycast_exact_impl='scan' for other dtypes"
+        )
+    pack = exact_precompute(layers, normal, inlier_cnt, cfg)
+    gate = exact_gate(pack, cfg) if impl == "gated" else None
+    res = cuda_march.exact_march(pack, assoc.world, assoc.valid, t.to(pack.dtype), cfg, gate)
+
+    out = layers.reshape(7, -1).clone()
+    out[2] -= res.dec
+    out[1] += res.hits * cfg.outlier_variance
+    wrote = torch.isfinite(res.ubmin)
+    out[5] = torch.where(wrote, res.ubmin, out[5])
+    out[6] = torch.where(wrote, 1.0, out[6])
+    out = out.reshape(layers.shape)
+    if not with_aux:
+        return out
+    if gate is None:
+        return out, _no_gate_aux(layers)
+    surv, total = res.counts[0], res.counts[1]
+    frac = torch.where(total > 0, surv.to(torch.float32) / torch.clamp(total, min=1).to(torch.float32), 0.0)
+    return out, {"gate_survivor_frac": frac.to(layers.dtype)}
+
+
+class AdaptiveExactRouter:
+    """Host-side gated/flat routing for ``raycast_exact_impl="auto"``
+    (raycast.py:925-1005, the same policy and backoff).
+
+    Keeps the last gated update's survivor fraction and routes the next
+    update to the flat march once it reaches ``threshold`` (the gate then
+    culls too little to pay for itself). Flat updates run no gate, so gated
+    probes re-measure with exponential backoff: 1, 2, 4, ... flat updates
+    between probes, capped at ``probe_period - 1``. A low fraction routes
+    straight back to gated.
+
+        router = AdaptiveExactRouter(cfg)
+        impl = router.route()                  # "gated" | "flat" | None
+        cfg_step = cfg.replace(raycast_exact_impl=impl) if impl else cfg
+        state, aux = core.update_pointcloud_aux(..., cfg_step)
+        router.observe(impl, aux["gate_survivor_frac"])
+
+    The observed value may stay a device tensor; it is read back at the next
+    ``route()``.
+    """
+
+    def __init__(self, cfg: MapConfig, threshold: Optional[float] = None, probe_period: Optional[int] = None):
+        self.threshold = _GATE_SURV_ROUTE if threshold is None else threshold
+        self.probe_period = _GATE_PROBE_PERIOD if probe_period is None else probe_period
+        # adaptive only where the exact march runs and impl "auto" resolves
+        # to gated
+        self._eligible = (
+            cfg.raycast_exact_impl == "auto"
+            and cfg.enable_visibility_cleanup
+            and cfg.n_ray_steps > 0
+            and resolve_raycast_mode(cfg) == "exact"
+            and cfg.n_ray_steps * cfg.max_points >= _FLAT_MIN_SAMPLES
+        )
+        self._last_frac = None
+        self._flat_streak = 0
+        self._flat_budget = 1
+        self._probe_pending = False
+
+    def route(self) -> Optional[str]:
+        """Implementation for the next update: "gated" or "flat", or None
+        when the static resolution stands (routing inactive)."""
+        if not self._eligible:
+            return None
+        frac = None if self._last_frac is None else float(self._last_frac)
+        if self._probe_pending:
+            # the last gated run was a probe: a confirming one lengthens the
+            # flat streak, a refuting one resets it
+            self._probe_pending = False
+            if frac is not None and frac >= self.threshold:
+                self._flat_budget = min(self._flat_budget * 2, max(self.probe_period - 1, 1))
+            else:
+                self._flat_budget = 1
+        if frac is not None and frac >= self.threshold:
+            if self._flat_streak < self._flat_budget:
+                self._flat_streak += 1
+                return "flat"
+            self._flat_streak = 0
+            self._probe_pending = True
+            return "gated"
+        return "gated"
+
+    def observe(self, impl: Optional[str], surv_frac) -> None:
+        """Record a gated update's survivor fraction (other updates carry
+        no gate information)."""
+        if impl == "gated":
+            self._last_frac = surv_frac
 
 
 def _bin(x: torch.Tensor, hi: int, rounding: bool = False) -> torch.Tensor:

@@ -181,10 +181,12 @@ def test_mapper_refuses_what_is_not_ported():
     for call in (tem.input_image, tem.get_polygon_traversability, tem.initialize_map):
         with pytest.raises(NotImplementedError):
             call()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ElevationMap(MapConfig(**dict(CFG_KW, raycast_mode="exact")), device="cpu").input_pointcloud(
-            np.ones((5, 3), np.float32), ["x", "y", "z"], np.eye(3), np.zeros(3), 0, 0
-        )
+    # the exact march is ported: an exact-mode map takes a cloud
+    exact = ElevationMap(MapConfig(**dict(CFG_KW, raycast_mode="exact")), device="cpu")
+    R, t, _ = chip_smoke.robot_pose(0)
+    exact.input_pointcloud(chip_smoke.scene_cloud(np.random.default_rng(1), 2000, R, t, 2.0), ["x", "y", "z"], R, t, 0, 0)
+    valid = exact.get_layers(["is_valid"])["is_valid"] > 0.5
+    assert valid.mean() > 0.2 and np.isfinite(exact.get_layers(["elevation"])["elevation"][valid]).all()
 
 
 def test_default_device_is_cuda():

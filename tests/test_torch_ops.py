@@ -223,6 +223,7 @@ def test_resolve_raycast_mode_and_exact_raises():
         dict(raycast_mode="exact"),
     ):
         assert trc.resolve_raycast_mode(MapConfig(**kw)) == jrc.resolve_raycast_mode(JaxConfig(**kw))
-    cfg = MapConfig(raycast_mode="exact")
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    # the exact march refuses an implementation it does not know
+    cfg = MapConfig(raycast_mode="exact", raycast_exact_impl="dense")
+    with pytest.raises(ValueError, match="raycast_exact_impl"):
         trc.visibility_cleanup(None, None, None, None, None, cfg)
