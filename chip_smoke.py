@@ -9,8 +9,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 2. build   - every CUDA kernel of the port, built from ``csrc/`` with nvcc
              (one process per source, all started together).
 3. kernels - K1 against its plain PyTorch version on the card, at the main
-             path's shapes, with its time, the plain version's, one PyTorch
-             library call's, and the bound (bytes over 3.35 TB/s).
+             path's shapes (the dense-map scatters take its shared-memory
+             path, the polar cube its global path), with the call's time
+             (CUDA events around the wrapper), the device's own time for it
+             (torch.profiler), the plain version's, one PyTorch library
+             call's, and the bound (bytes over 3.35 TB/s).
 4. main    - ``ElevationMap(deployed config, device="cuda")`` with the
              shipped weights takes 20 updates of a seeded synthetic scene of
              131072 points while the robot moves (``move_to``); the polar
@@ -24,9 +27,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              shapes (202x202 cells, 353 steps), on the main phase's map aged
              past the recency gate, for 131072 and 1048576 rays of the scene,
              gate on and off: hit counts, upper bounds and segment counts
-             equal, the decrement within 2e-4 relative; its time, the plain
-             version's, and the bound from the work the plain version
-             tallied on the same inputs.
+             equal, the decrement within 2e-4 relative; its time (call and
+             device), the plain version's, and the bound from the work the
+             plain version tallied on the same inputs. The same four cases
+             on the map before it is aged (no cell can be hit yet) give the
+             gated march against the flat one on a fresh map.
 6. exact   - the same deployed config with ``raycast_mode="exact"``: 8
              updates of 131072 points with the gated/flat router live (353
              steps x 131072 points >= 1 << 20); every update must launch K2
@@ -39,11 +44,13 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. ``--json PATH`` also writes every
+measured number of the run to PATH.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import math
@@ -223,6 +230,35 @@ def _events_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int):
+    """Device time of one call of ``fn``: everything it puts on the card
+    (its kernel and whatever fill that needs), summed by name from
+    torch.profiler over ``iters`` calls. Returns (ms per call, ms per call by
+    device operation). ``_events_ms`` around the same call reads the larger
+    of this and the host's time to enqueue it.
+
+    The tracer now and then drops records at the edge of a window (often
+    the window's first kernel), so an operation's time per call is its mean
+    over the records that came through times the number of times a call
+    runs it, not its total over ``iters``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0]
+        if dev:
+            by_name = {
+                e.key[:60]: e.self_device_time_total / e.count * max(1, round(e.count / iters)) / 1e3 for e in dev
+            }
+            return sum(by_name.values()), by_name
+    raise AssertionError("the profiler saw no device operation in three windows")
+
+
 def _cell_indices(rng, b: int, n: int, n_cells: int) -> np.ndarray:
     """Main-path-like indices: point density falling with range from the
     middle of a square grid (or the middle of a flat bin range)."""
@@ -266,7 +302,8 @@ def check_scatter_case(rng, label: str, b: int, n: int, n_cells: int, exact, tim
         if not e and r > VALUE_TOL:
             raise AssertionError(f"{label}: value stream {s} off by {r} (relative) > {VALUE_TOL}")
         err, rel = max(err, d), max(rel, r)
-    res = {"case": label, "B": b, "N": n, "K": k, "n_cells": n_cells, "max_abs_err": err, "max_rel_err": rel}
+    res = {"case": label, "B": b, "N": n, "K": k, "n_cells": n_cells, "max_abs_err": err, "max_rel_err": rel,
+           "path": cs.launch_plan(b, k, n, n_cells).path}
     if not timed:
         log("kernel check: " + json.dumps(res))
         return res
@@ -276,6 +313,8 @@ def check_scatter_case(rng, label: str, b: int, n: int, n_cells: int, exact, tim
     res["bound_ms"] = bytes_moved / HBM_BYTES_PER_S * 1e3
     iters = 10 if n_cells > 1 << 22 else 50
     res["kernel_ms"] = _events_ms(lambda: cs.scatter_add_streams(idx, mask, vals, n_cells), iters)
+    res["device_ms"], res["device_ops_ms"] = _device_ms(lambda: cs.scatter_add_streams(idx, mask, vals, n_cells), iters)
+    res["share_of_bound"] = res["bound_ms"] / res["device_ms"]
     res["plain_ms"] = _events_ms(lambda: cs.scatter_add_streams_reference(idx, mask, vals, n_cells), iters)
     # yardstick only (the port never calls it): one index_put_ with
     # accumulate=True on the flat output, indices expanded per stream
@@ -298,7 +337,9 @@ def check_scatter_case(rng, label: str, b: int, n: int, n_cells: int, exact, tim
 
 
 def phase_kernels(cfg):
-    """K1 at every shape the main path gives it, plus the edge cases."""
+    """K1 at every shape the main path gives it, plus the edge cases. Both
+    of its paths are checked: the deployed map's scatters must take the
+    shared-memory path and the cube's the global one."""
     rng = np.random.default_rng(0)
     cells = cfg.cell_n * cfg.cell_n
     bins = cfg.azimuth_bins * (cfg.n_ray_steps + 2) * cfg.raycast_elevation_bins
@@ -309,8 +350,15 @@ def phase_kernels(cfg):
             rng, f"point fusion N={n}", 1, n, cells, (False, False, True, True)
         )
         cases[("cube", n)] = check_scatter_case(rng, f"polar cube N={n}", 1, n, bins, (True, False))
+    for (kind, n), res in cases.items():
+        want = "global" if kind == "cube" else "private"
+        if res["path"] != want:
+            raise AssertionError(f"K1 {kind} N={n} took the {res['path']} path, expected {want}")
     check_scatter_case(rng, "zero points", 1, 0, cells, (True, True), timed=False)
     check_scatter_case(rng, "batched B=4", 4, MAIN_POINTS, cells, (False, False, True, True), timed=False)
+    # the largest map of the shared-memory path and the first past it
+    check_scatter_case(rng, "58112 cells", 1, MAIN_POINTS, 58112, (False, True), timed=False)
+    check_scatter_case(rng, "58113 cells", 1, MAIN_POINTS, 58113, (False, True), timed=False)
     return cases
 
 
@@ -413,6 +461,7 @@ def phase_main(cfg, kernel_regs):
         med = float(np.median(times[2:]))
         rates[n] = {"latency_ms_median": med * 1e3, "points_per_s": n / med}
     log("points/s: " + json.dumps(rates))
+    res["rates"] = rates
     prof = profile_updates(em, rng)
     # the profiler slows the host, so the busy share is taken against the
     # unprofiled latency of the main path
@@ -456,12 +505,13 @@ def march_inputs(state, cfg, n_rays: int, rng, gated: bool, pose: int = N_UPDATE
     return pack, assoc.world, assoc.valid, t_c, gate
 
 
-def check_march_case(state, cfg, rng, n_rays: int, gated: bool) -> dict:
+def check_march_case(state, cfg, rng, n_rays: int, gated: bool, aged: bool = True) -> dict:
     """K2 against its plain version on the card at one shape; returns the
-    measured numbers."""
+    measured numbers. On a map that is not ``aged`` past the recency gate no
+    cell can be hit, and the march only lowers upper bounds."""
     from elevation_mapping_cupy_torch.ops import cuda_march as cm
 
-    label = f"exact march N={n_rays} {'gated' if gated else 'ungated'}"
+    label = f"exact march N={n_rays} {'gated' if gated else 'ungated'}{'' if aged else ' fresh map'}"
     args = march_inputs(state, cfg, n_rays, rng, gated)
     got = cm.exact_march(*args[:4], cfg, args[4])
     work = {}
@@ -485,7 +535,7 @@ def check_march_case(state, cfg, rng, n_rays: int, gated: bool) -> dict:
     ops = sum(MARCH_OPS[key] * c for key, c in work.items())
     bytes_ms, ops_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     res = {
-        "case": label, "rays": n, "gated": gated, "work": work,
+        "case": label, "rays": n, "gated": gated, "aged": aged, "work": work,
         "counts": got.counts.tolist() if gated else None,
         "hit_cells": int((got.hits > 0).sum()), "hits": int(got.hits.sum()),
         "ub_cells": int(torch.isfinite(got.ubmin).sum()),
@@ -498,7 +548,9 @@ def check_march_case(state, cfg, rng, n_rays: int, gated: bool) -> dict:
         # no single PyTorch call computes a ray march, so there is no yardstick
         "library_ms": None,
     }
-    if res["hits"] == 0 or res["ub_cells"] == 0:
+    res["device_ms"], res["device_ops_ms"] = _device_ms(lambda: cm.exact_march(*args[:4], cfg, args[4]), 20)
+    res["share_of_bound"] = res["bound_ms"] / res["device_ms"]
+    if (aged and res["hits"] == 0) or res["ub_cells"] == 0:
         raise AssertionError(f"{label}: the case must both hit cells and write upper bounds: {res}")
     log("kernel check: " + json.dumps(res))
     return res
@@ -516,6 +568,15 @@ def phase_march(cfg, mapped_state):
         state = core.update_time(state, ecfg)
     rng = np.random.default_rng(4)
     cases = {(n, g): check_march_case(state, ecfg, rng, n, g) for n in MARCH_RAYS for g in (True, False)}
+    fresh = {
+        (n, g): check_march_case(mapped_state, ecfg, rng, n, g, aged=False) for n in MARCH_RAYS for g in (True, False)
+    }
+    for name, group in (("aged", cases), ("fresh", fresh)):
+        log(f"gated against flat, {name} map: " + json.dumps({
+            str(n): {"gated_device_ms": group[(n, True)]["device_ms"], "flat_device_ms": group[(n, False)]["device_ms"],
+                     "survivor_frac": group[(n, True)]["counts"][0] / max(group[(n, True)]["counts"][1], 1)}
+            for n in MARCH_RAYS
+        }))
     # edge cases: no rays (no launch), every ray masked (a launch, no writes)
     pack, world, valid, t, gate = march_inputs(state, ecfg, 4096, rng, True)
     before = cm.KERNEL.launches
@@ -528,7 +589,7 @@ def phase_march(cfg, mapped_state):
         if r.counts.tolist() != [0, 0] or float(r.hits.sum()) != 0 or not bool(torch.isinf(r.ubmin).all()):
             raise AssertionError(f"K2 {tag} march wrote something")
     log("kernel check: exact march empty and all-masked: nothing written")
-    return cases
+    return cases, fresh
 
 
 def phase_exact(cfg, kernel_regs):
@@ -666,10 +727,11 @@ def profile_updates(em, rng, n_updates: int = 5, pose: int = 300) -> dict:
 
 def kernels_line(cases, launches, march_cases, exact_launches, n_main: int) -> dict:
     """One entry per kernel. K1's numbers are those of one update's three
-    launches at the main path's cloud size (error counting, fusion, cube)
-    and its launches on the polar main path; K2's are those of the gated
-    march of n_main rays (the router's first choice) and its launches on
-    the exact path."""
+    launches at the main path's cloud size (error counting, fusion, cube),
+    summed and, under ``cases``, each on its own, and its launches on the
+    polar main path; K2's are those of the gated march of n_main rays (the
+    router's first choice) and its launches on the exact path. ``ms`` is the
+    call as its caller pays for it, ``device_ms`` the device's own time."""
     march = march_cases[(n_main, True)]
     shapes = [cases[(c, n_main)] for c in ("count", "fusion", "cube")]
     total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
@@ -685,10 +747,16 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int) -> d
                 "launches": launches["scatter_add_streams"],
                 "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
                 "ms": total("kernel_ms"),
+                "device_ms": total("device_ms"),
                 "plain_ms": total("plain_ms"),
                 "bound_ms": total("bound_ms"),
                 "bound_by": "bytes",
                 "library_ms": total("library_ms"),
+                "cases": [
+                    {"case": s["case"], "path": s["path"], "ms": s["kernel_ms"], "device_ms": s["device_ms"],
+                     "bound_ms": s["bound_ms"], "plain_ms": s["plain_ms"], "library_ms": s["library_ms"]}
+                    for s in shapes
+                ],
             },
             {
                 "name": "exact_march",
@@ -700,6 +768,7 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int) -> d
                 "launches": exact_launches["exact_march"],
                 "max_abs_err": max(c["max_abs_err"] for c in march_cases.values()),
                 "ms": march["kernel_ms"],
+                "device_ms": march["device_ms"],
                 "plain_ms": march["plain_ms"],
                 "bound_ms": march["bound_ms"],
                 "bound_by": march["bound_by"],
@@ -709,12 +778,15 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int) -> d
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--json", metavar="PATH", help="also write every measured number of the run to PATH")
+    args = parser.parse_args(argv)
     t0 = time.perf_counter()
 
-    def timed(phase, fn, *args):
+    def timed(phase, fn, *fn_args):
         t = time.perf_counter()
-        out = fn(*args)
+        out = fn(*fn_args)
         log(f"phase {phase}: {time.perf_counter() - t:.1f} s")
         return out
 
@@ -722,12 +794,20 @@ def main() -> int:
     regs = timed("build", phase_build)
     cfg = deployed_config()
     cases = timed("kernels", phase_kernels, cfg)
-    _, launches, mapped_state = timed("main", phase_main, cfg, regs)
-    march_cases = timed("march", phase_march, cfg, mapped_state)
-    _, exact_launches = timed("exact", phase_exact, cfg, regs)
+    main_res, launches, mapped_state = timed("main", phase_main, cfg, regs)
+    march_cases, fresh_cases = timed("march", phase_march, cfg, mapped_state)
+    exact_res, exact_launches = timed("exact", phase_exact, cfg, regs)
     timed("replay", phase_replay, cfg, regs)
     log(f"total: {time.perf_counter() - t0:.1f} s")
-    print(json.dumps(kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS)))
+    line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({
+                "card": smi, "kernels_line": line, "polar": main_res, "exact": exact_res,
+                "scatter_cases": list(cases.values()),
+                "march_cases": list(march_cases.values()) + list(fresh_cases.values()),
+            }, f, indent=1)
+    print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -1,34 +1,40 @@
 // K2 exact_march: the exact visibility-cleanup ray march, fused into one
-// kernel. One thread per ray walks its k live steps and adds its hits and
-// upper-bound candidates into cell space with atomics.
+// kernel. A group of G lanes of a warp marches one ray, lane l taking steps
+// l, l + G, l + 2G, ..., and adds the ray's hits and upper-bound candidates
+// into cell space with atomics.
 //
 // Replaces the in-kernel primitives that scripts/probe_pallas_gather.py
 // (try_kernel, :38) tried on Mosaic and could not lower: the per-sample
 // cell gathers k_take, k_take2, k_take2d, k_taa and k_taa2 (here one load of
-// the packed cell row), the scatter-add k_scat (atomicAdd of the decrement
-// and the hit count), the scatter-min k_smin (an atomic min on f32) and the
-// sort k_sort (elevation_mapping_cupy_tpu/ops/raycast.py:569-575 and
-// :891-897 sort to take a per-cell min; the atomic min gives the same
-// order-free min without one). It also replaces the B1 scatters
+// the packed cell row), the scatter-add k_scat (one atomicAdd of the
+// decrement and the hit count together), the scatter-min k_smin (an atomic
+// min on f32) and the sort k_sort (elevation_mapping_cupy_tpu/ops/raycast.py
+// :569-575 and :891-897 sort to take a per-cell min; the atomic min gives
+// the same order-free min without one). It also replaces the B1 scatters
 // (ops/pallas_scatter.py::_kernel) that the TPU march launches once per step
 // or chunk (raycast.py:291, 548, 880): nothing leaves the kernel but the
 // three per-cell results.
 //
-// Per ray, the thread first builds what _exact_flat's table holds
+// Per ray, one lane first builds what _exact_flat's table holds
 // (raycast.py:382-400): direction, decrement and the live-step count k,
 // the number of steps s_m = (m+1)*step with s_m < ray_length and
 // s_m <= norm - sqrt(0.1) + step (past which the endpoint test rejects
-// every sample), found by binary search over the same rounded s_m as
-// searchsorted over the JAX package's steps vector. A ray that is not valid
-// gets k = 0.
+// every sample). k is the searchsorted of the JAX package over its steps
+// vector: a first guess x / step, moved by single steps until it satisfies
+// the same compares against the same rounded s_m (s_m grows with m, so the
+// count is unique). A ray that is not valid gets k = 0.
 //
-// Per-sample rules: those of raycast.py::_exact_scan (:257-309), with the
-// previous step's cell recomputed from s_{m-1} as _exact_gated does
-// (:863-867) instead of carried, so a culled segment needs no bookkeeping.
+// Per-sample rules: those of raycast.py::_exact_scan (:257-309). Every
+// sample is computed from its own m, so its cell does not depend on which
+// lane computes it. "Fresh" compares a sample's cell with the previous
+// step's: that comes from the neighbouring lane by shuffle, from the last
+// lane of the group's previous pass for lane 0, and for the first sample of
+// a gated segment from the lane that tested the segment.
 // With a gate table, each segment of `seg` steps is tested once against the
 // dilated block max of the per-cell write threshold (raycast.py:801-810) and
-// skipped when no sample in it can write; live and surviving segments are
-// counted with two 64-bit atomics.
+// skipped when no sample in it can write: the group tests one segment per
+// lane, ballots the survivors and marches their samples packed densely over
+// its lanes. Live and surviving segments are counted exactly.
 //
 // Rounding: the JAX reference (XLA on the CPU) contracts the march's
 // multiply-adds into FMAs: the ray norm's reduction
@@ -49,17 +55,32 @@
 // 32-byte cell row, which stays in L2 (the deployed 202x202 pack is
 // 1.3 MB). The bytes that must come from device memory are only the
 // points, the pack and the three outputs (a few MB), so 1e7-1e8 samples
-// per update put the floor at the float32 rate. The design keeps every
-// intermediate in registers: a thread reads its point once, never writes a
-// per-sample value, and touches memory per sample only for the cell row
-// and, for the few samples that write, the atomics.
-// Not yet addressed (later work): load imbalance between short and long
-// rays within a warp, and atomic contention on cells that many rays hit.
+// per update put the floor at the float32 rate. What the design does about
+// it:
+//   - every intermediate stays in registers; a lane touches memory per
+//     sample only for the cell row and, for the few samples that write, the
+//     atomics;
+//   - a warp's time follows the length of its rays over G, not the longest
+//     of 32 rays: rays of 10 to 250 live steps share a cloud;
+//   - groups take chunks of G rays in a grid-stride loop from a grid sized
+//     to the card's resident blocks, each lane building one ray of the
+//     chunk, so ray set-up is not repeated per lane and point loads
+//     coalesce; with G < 32 the groups of a warp keep in step (every loop
+//     runs as often as the longest of them needs), because a divergent warp
+//     shuffles one group at a time;
+//   - the previous step's cell is shuffled, not recomputed: two true
+//     divisions and two FMAs a sample instead of four and four;
+//   - the decrement and the hit count share one (n*n, 2) buffer and one
+//     float2 atomic; the upper bound's atomic min is skipped when the stored
+//     value is already as low (the min only falls, so a stale read can cost
+//     a redundant atomic, never lose a write).
+// The entry point initialises the outputs itself (one small kernel on the
+// stream) before the march.
 //
 // Built by elevation_mapping_cupy_torch/kernels.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libexact_march.so exact_march.cu
-// and called through ctypes: the C entry point returns cudaGetLastError().
+// and called through ctypes: the C entry point returns the first CUDA error.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,6 +97,27 @@ struct Grid {
   float step;     // ray step (m)
   int n_steps;    // steps of the longest ray
 };
+
+struct GateArgs {
+  const float* table;  // (nb*nb,) block thresholds, or null: no gate
+  int seg;             // steps per segment
+  int seg_shift;       // log2(seg) when seg is a power of two, else -1
+  int block;           // cells per block side
+  int block_shift;     // log2(block) when block is a power of two, else -1
+  int nb;              // blocks per side
+  float eps;
+};
+
+struct Outputs {
+  float2* dechits;              // (n*n, 2): summed decrement, hit count
+  float* ubmin;                 // (n*n,): lowest upper-bound candidate
+  const float* reach;           // (n*n,): see init_outputs_kernel
+  unsigned long long* counts;   // (2,): surviving, live segments; or null
+};
+
+__device__ __forceinline__ int div_pow2(int x, int d, int shift) {
+  return shift >= 0 ? (x >> shift) : (x / d);
+}
 
 // (x / res + n/2), clamped to [0, n-1], truncated: geometry.cell_indices
 // with a zero center.
@@ -102,22 +144,27 @@ struct Ray {
   float dec_amount;   // cleanup_step / (ray_length / max_ray_length)
 };
 
-// Steps m in [0, n_steps) with s_m < x (s_m <= x when `inclusive`): the
-// searchsorted of the JAX package over its steps vector, side "left"
-// ("right"). s_m grows with m, so the count is found by halving.
+// Steps m in [0, n_steps) with s_m < x (s_m <= x when `inclusive`), where
+// s_m = fl((m + 1) * step): the searchsorted of the JAX package over its
+// steps vector, side "left" ("right"). s_m grows with m, so the count c is
+// the one value with s_{c-1} below x and s_c not; the quotient x / step
+// lands within a step of it. ops/cuda_march.py::steps_below mirrors this.
 __device__ __forceinline__ int steps_below(float x, bool inclusive,
                                            const Grid& g) {
-  int lo = 0, hi = g.n_steps;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const float s = __fmul_rn(static_cast<float>(mid + 1), g.step);
-    if (inclusive ? s <= x : s < x) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+  const float q = fminf(fmaxf(__fdividef(x, g.step), 0.0f),
+                        static_cast<float>(g.n_steps));  // NaN -> 0
+  int c = static_cast<int>(q);
+  while (c < g.n_steps) {
+    const float s = __fmul_rn(static_cast<float>(c + 1), g.step);
+    if (!(inclusive ? s <= x : s < x)) break;
+    ++c;
   }
-  return lo;
+  while (c > 0) {
+    const float s = __fmul_rn(static_cast<float>(c), g.step);
+    if (inclusive ? s <= x : s < x) break;
+    --c;
+  }
+  return c;
 }
 
 // The ray from t to its end point p and its live-step count.
@@ -144,36 +191,48 @@ __device__ __forceinline__ int make_ray(float px, float py, float pz,
   return min(steps_below(ray_length, false, g), steps_below(end, true, g));
 }
 
-__device__ __forceinline__ void march_sample(int m, const Ray& r, float tx,
-                                             float ty, float tz,
+// x and y of sample m and its cell, clamped to the map
+struct Sample {
+  float s, sx, sy;
+  int ix, iy, cell;
+};
+
+__device__ __forceinline__ Sample sample_cell(int m, const Ray& r, float tx,
+                                              float ty, const Grid& g) {
+  Sample q;
+  q.s = __fmul_rn(static_cast<float>(m + 1), g.step);
+  q.sx = __fmaf_rn(r.dx, q.s, tx);
+  q.sy = __fmaf_rn(r.dy, q.s, ty);
+  q.ix = axis_cell(q.sx, g);
+  q.iy = axis_cell(q.sy, g);
+  q.cell = g.n * q.ix + q.iy;
+  return q;
+}
+
+// The rules of a sample that lies inside the map in a cell the previous
+// step was not in.
+__device__ __forceinline__ void fresh_sample(const Sample& q, const Ray& r,
+                                             float tz,
                                              const float4* __restrict__ pack,
-                                             const Grid& g, float cos_thresh,
-                                             float* __restrict__ dec,
-                                             float* __restrict__ hits,
-                                             float* __restrict__ ubmin) {
-  const float s = __fmul_rn(static_cast<float>(m + 1), g.step);
-  const float sx = __fmaf_rn(r.dx, s, tx);
-  const float sy = __fmaf_rn(r.dy, s, ty);
-  const float nz = __fmaf_rn(r.dz, s, tz);
-  const int ix = axis_cell(sx, g);
-  const int iy = axis_cell(sy, g);
-  if (ix <= 0 || ix >= g.n - 1 || iy <= 0 || iy >= g.n - 1) return;
-  const int cell = g.n * ix + iy;
-  if (m > 0) {  // same cell as the previous step: not a fresh sample
-    const float sp = __fmul_rn(static_cast<float>(m), g.step);
-    const int px = axis_cell(__fmaf_rn(r.dx, sp, tx), g);
-    const int py = axis_cell(__fmaf_rn(r.dy, sp, ty), g);
-    if (g.n * px + py == cell) return;
-  }
-  const float ex = __fsub_rn(r.px, sx);
-  const float ey = __fsub_rn(r.py, sy);
+                                             float cos_thresh,
+                                             const Outputs& out) {
+  const float nz = __fmaf_rn(r.dz, q.s, tz);
+  // no sample at or above the cell's reach writes: most samples end here,
+  // on 4 bytes that stay in L1, and never load the 32-byte row
+  if (!(nz < __ldg(out.reach + q.cell))) return;
+  // the cell row (height, penetration slack, upper-bound threshold, code;
+  // normal x, y, z, padding) and the stored upper bound, all asked for at
+  // once: the few samples that come this far would else wait for three
+  // loads one after the other
+  const float4 a = __ldg(pack + 2 * q.cell);
+  const float4 b = __ldg(pack + 2 * q.cell + 1);
+  const float ub_stored = __ldcg(out.ubmin + q.cell);
+  const float ex = __fsub_rn(r.px, q.sx);
+  const float ey = __fsub_rn(r.py, q.sy);
   const float ez = __fsub_rn(r.pz, nz);
   const float d = __fmaf_rn(ez, ez, __fmaf_rn(ey, ey, __fmul_rn(ex, ex)));
   if (!(d >= 0.1f)) return;
 
-  // the cell row: height, penetration slack, upper-bound threshold, code;
-  // normal x, y, z, padding
-  const float4 a = __ldg(pack + 2 * cell);
   const bool ub_cond = nz < a.z;
   bool write_ub = false;
   if (a.w == 1.0f) {  // invalid cell: upper-bound candidate only
@@ -181,106 +240,339 @@ __device__ __forceinline__ void march_sample(int m, const Ray& r, float tx,
   } else if (a.w == 2.0f) {  // cell eligible to be cleaned up
     const bool penet = a.x > __fsub_rn(__fadd_rn(nz, 0.01f), a.y);
     if (penet) {
-      const float4 b = __ldg(pack + 2 * cell + 1);
       const float prod =
           __fmaf_rn(r.dz, b.z, __fmaf_rn(r.dx, b.x, __fmul_rn(r.dy, b.y)));
       if (fabsf(prod) >= cos_thresh) {
-        atomicAdd(dec + cell, r.dec_amount);
-        atomicAdd(hits + cell, 1.0f);
+        atomicAdd(out.dechits + q.cell, make_float2(r.dec_amount, 1.0f));
         write_ub = ub_cond;
       }
     }
   }
-  if (write_ub) atomic_min_f32(ubmin + cell, nz);
+  // the stored min only falls: a stale read can cost a redundant atomic,
+  // never lose a write
+  if (write_ub && nz < ub_stored) atomic_min_f32(out.ubmin + q.cell, nz);
 }
 
+__device__ __forceinline__ bool inside(const Sample& q, const Grid& g) {
+  return q.ix > 0 && q.ix < g.n - 1 && q.iy > 0 && q.iy < g.n - 1;
+}
+
+// The groups of a warp run every loop the same number of times (the most
+// any of them needs, found with group_max) and shuffle with the full mask:
+// a warp whose groups ran different trip counts would diverge, and a
+// divergent warp shuffles one group at a time.
+constexpr unsigned kFull = 0xffffffffu;
+
+// The largest v over the groups of a warp; v is the same in all lanes of a
+// group.
+template <int G>
+__device__ __forceinline__ int group_max(int v) {
+#pragma unroll
+  for (int off = G; off < 32; off <<= 1) {
+    v = max(v, __shfl_xor_sync(kFull, v, off));
+  }
+  return v;
+}
+
+// The group's G bits of a ballot, in bits 0 .. G - 1.
+template <int G>
+__device__ __forceinline__ unsigned group_ballot(bool pred, unsigned gshift) {
+  const unsigned all = __ballot_sync(kFull, pred);
+  return G == 32 ? all : (all >> gshift) & ((1u << (G & 31)) - 1u);
+}
+
+// One ray per group without a gate: pass p of the group takes steps
+// pG .. pG + G - 1. k is 0 for a group without a ray.
+template <int G>
+__device__ __forceinline__ void march_flat(const Ray& r, int k, int lane,
+                                           float tx, float ty, float tz,
+                                           const float4* __restrict__ pack,
+                                           const Grid& g, float cos_thresh,
+                                           const Outputs& out) {
+  const int k_max = group_max<G>(k);
+  int carry = -1;  // cell of the step before this pass; step 0 has none
+  for (int m0 = 0; m0 < k_max; m0 += G) {
+    const int m = m0 + lane;
+    const Sample q = sample_cell(m, r, tx, ty, g);
+    int prev = __shfl_up_sync(kFull, q.cell, 1, G);
+    if (lane == 0) prev = carry;
+    carry = __shfl_sync(kFull, q.cell, G - 1, G);
+    if (m < k && inside(q, g) && q.cell != prev) {
+      fresh_sample(q, r, tz, pack, cos_thresh, out);
+    }
+  }
+}
+
+// One ray per group with a gate. Returns the ray's surviving segments in x
+// and its live segments in y (both below 2^31).
+template <int G>
+__device__ __forceinline__ uint2 march_gated(const Ray& r, int k, int lane,
+                                             unsigned gshift, float tx,
+                                             float ty, float tz,
+                                             const float4* __restrict__ pack,
+                                             const Grid& g, const GateArgs& ga,
+                                             float cos_thresh,
+                                             const Outputs& out) {
+  const int n_seg = div_pow2(k + ga.seg - 1, ga.seg, ga.seg_shift);
+  const int n_seg_max = group_max<G>(n_seg);
+  unsigned survived = 0;
+  for (int sb = 0; sb < n_seg_max; sb += G) {
+    // test: lane l takes segment sb + l, steps [m_lo, m_hi)
+    const int sj = sb + lane;
+    const int m_lo = sj * ga.seg;
+    bool survives = false;
+    int before = -1;  // cell of the step before the segment; step 0 has none
+    if (sj < n_seg) {
+      const int m_hi = min(m_lo + ga.seg, k);
+      // nz is linear in s, so the segment's lowest sample is an end
+      const float s_lo = __fmul_rn(static_cast<float>(m_lo + 1), g.step);
+      const float s_hi = __fmul_rn(static_cast<float>(m_hi), g.step);
+      const float x0 = __fmaf_rn(r.dx, s_lo, tx);
+      const float y0 = __fmaf_rn(r.dy, s_lo, ty);
+      const float nz_min =
+          fminf(__fmaf_rn(r.dz, s_lo, tz), __fmaf_rn(r.dz, s_hi, tz));
+      const int bx = div_pow2(axis_cell(x0, g), ga.block, ga.block_shift);
+      const int by = div_pow2(axis_cell(y0, g), ga.block, ga.block_shift);
+      survives = nz_min < __fadd_rn(__ldg(ga.table + bx * ga.nb + by), ga.eps);
+      if (survives && m_lo > 0) before = sample_cell(m_lo - 1, r, tx, ty, g).cell;
+    }
+    const unsigned smask = group_ballot<G>(survives, gshift);
+    const int n_surv = __popc(smask);
+    survived += n_surv;
+
+    // march: the surviving segments' steps, packed over the lanes. Flat
+    // index f is step f % seg of the (f / seg)-th surviving segment.
+    const int total = n_surv * ga.seg;
+    const int total_max = group_max<G>(total);
+    unsigned rest = smask;  // smask without its `taken` lowest set bits
+    int taken = 0;
+    int carry = -1;
+    for (int f0 = 0; f0 < total_max; f0 += G) {
+      const int f = f0 + lane;
+      const int which = div_pow2(f, ga.seg, ga.seg_shift);
+      const int off = f - which * ga.seg;
+      unsigned pick = rest;
+      for (int i = taken; i < which; ++i) pick &= pick - 1;
+      const int sl = __ffs(pick) - 1;  // lane that tested the segment, or -1
+      const int m = (sb + sl) * ga.seg + off;
+      const Sample q = sample_cell(m, r, tx, ty, g);
+      int prev = __shfl_up_sync(kFull, q.cell, 1, G);
+      const int seg_before = __shfl_sync(kFull, before, max(sl, 0), G);
+      if (lane == 0) prev = carry;  // a segment that straddles two passes
+      if (off == 0) prev = seg_before;
+      carry = __shfl_sync(kFull, q.cell, G - 1, G);
+      if (sl >= 0 && m < k && inside(q, g) && q.cell != prev) {
+        fresh_sample(q, r, tz, pack, cos_thresh, out);
+      }
+      const int done = div_pow2(f0 + G, ga.seg, ga.seg_shift);
+      for (; taken < done; ++taken) rest &= rest - 1;
+    }
+  }
+  return make_uint2(survived, static_cast<unsigned>(n_seg));
+}
+
+// dechits <- 0, ubmin <- +inf, counts <- 0, and each cell's reach, in one
+// pass over the outputs' one buffer: floats [0, 4) are the two counts,
+// [4, 4 + 2 n^2) the decrement and hit count, then n^2 of upper bound and
+// n^2 of reach.
+// A cell's reach is a height that every sample that writes to the cell lies
+// below. An invalid cell (code 1) is written where nz < its upper-bound
+// threshold: that is its reach. An eligible cell (code 2) is written only
+// by a sample that penetrates it, height > fl(fl(nz + 0.01) - slack); the
+// three roundings move that compare by less than 4 ulp of the largest
+// operand, so nz < height - 0.01 + slack + margin holds for every such
+// sample once the margin is 1e-3 + 1e-5 (|height| + |slack|), a hundred
+// times those ulps. Any other cell is never written: -inf. The reach only
+// spares work: a sample below it still takes the exact tests on the row.
+__global__ void __launch_bounds__(kThreads)
+init_outputs_kernel(const float4* __restrict__ pack, float* __restrict__ buf,
+                    int64_t n2) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t n_zero = 4 + 2 * n2;
+  if (i < n_zero) {
+    buf[i] = 0.0f;
+  } else if (i < n_zero + n2) {
+    buf[i] = INFINITY;
+  } else if (i < n_zero + 2 * n2) {
+    const float4 a = __ldg(pack + 2 * (i - n_zero - n2));
+    float reach = -INFINITY;
+    if (a.w == 1.0f) {
+      reach = a.z;
+    } else if (a.w == 2.0f) {
+      reach = a.x - 0.01f + a.y + (1e-3f + 1e-5f * (fabsf(a.x) + fabsf(a.y)));
+    }
+    buf[i] = reach;
+  }
+}
+
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 exact_march_kernel(const float4* __restrict__ pack,
                    const float* __restrict__ points,
                    const bool* __restrict__ valid,
-                   const float* __restrict__ t,
-                   const float* __restrict__ gate,
-                   float* __restrict__ dec, float* __restrict__ hits,
-                   float* __restrict__ ubmin,
-                   unsigned long long* __restrict__ counts, int64_t n_rays,
-                   Grid g, float max_ray_length, float cleanup_step,
-                   float cos_thresh, int seg, int block, int nb,
-                   float gate_eps) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+                   const float* __restrict__ t, GateArgs ga, Outputs out,
+                   int64_t n_rays, Grid g, float max_ray_length,
+                   float cleanup_step, float cos_thresh) {
+  const int lane = threadIdx.x & (G - 1);
+  const unsigned gshift = (threadIdx.x & 31u) & ~static_cast<unsigned>(G - 1);
+  // the first group of this warp and the number of groups in the grid
+  const int64_t warp_group =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + (threadIdx.x & ~31u)) / G;
+  const int64_t n_groups = static_cast<int64_t>(gridDim.x) * kThreads / G;
+  const int64_t n_chunks = (n_rays + G - 1) / G;
+  const float tx = __ldg(t), ty = __ldg(t + 1), tz = __ldg(t + 2);
   unsigned long long survived = 0, segments = 0;
-  if (i < n_rays && valid[i]) {
-    const float tx = __ldg(t), ty = __ldg(t + 1), tz = __ldg(t + 2);
-    Ray r;
-    const int kr = make_ray(points[3 * i], points[3 * i + 1],
-                            points[3 * i + 2], tx, ty, tz, g, max_ray_length,
-                            cleanup_step, &r);
-    if (gate == nullptr) {
-      for (int m = 0; m < kr; ++m) {
-        march_sample(m, r, tx, ty, tz, pack, g, cos_thresh, dec, hits, ubmin);
-      }
-    } else {
-      for (int m0 = 0; m0 < kr; m0 += seg) {
-        const int m1 = min(m0 + seg, kr);  // exclusive
-        ++segments;
-        // nz is linear in s, so the segment's lowest sample is an end
-        const float s_lo = __fmul_rn(static_cast<float>(m0 + 1), g.step);
-        const float s_hi = __fmul_rn(static_cast<float>(m1), g.step);
-        const float x0 = __fmaf_rn(r.dx, s_lo, tx);
-        const float y0 = __fmaf_rn(r.dy, s_lo, ty);
-        const float nz_min = fminf(__fmaf_rn(r.dz, s_lo, tz),
-                                   __fmaf_rn(r.dz, s_hi, tz));
-        const int bx = axis_cell(x0, g) / block;
-        const int by = axis_cell(y0, g) / block;
-        if (!(nz_min < __fadd_rn(__ldg(gate + bx * nb + by), gate_eps))) continue;
-        ++survived;
-        for (int m = m0; m < m1; ++m) {
-          march_sample(m, r, tx, ty, tz, pack, g, cos_thresh, dec, hits, ubmin);
-        }
+
+  for (int64_t c0 = warp_group; c0 < n_chunks; c0 += n_groups) {
+    // each group takes a chunk of G rays and each lane builds one of them
+    const int64_t i = (c0 + (gshift / G)) * G + lane;
+    Ray mine = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    int k_mine = 0;
+    if (i < n_rays && valid[i]) {
+      k_mine = make_ray(points[3 * i], points[3 * i + 1], points[3 * i + 2],
+                        tx, ty, tz, g, max_ray_length, cleanup_step, &mine);
+    }
+    // a group marches its chunk's live rays one after the other
+    unsigned live = group_ballot<G>(k_mine > 0, gshift);
+    while (__any_sync(kFull, live != 0)) {
+      const int j = live != 0 ? __ffs(live) - 1 : 0;
+      Ray r;
+      r.dx = __shfl_sync(kFull, mine.dx, j, G);
+      r.dy = __shfl_sync(kFull, mine.dy, j, G);
+      r.dz = __shfl_sync(kFull, mine.dz, j, G);
+      r.px = __shfl_sync(kFull, mine.px, j, G);
+      r.py = __shfl_sync(kFull, mine.py, j, G);
+      r.pz = __shfl_sync(kFull, mine.pz, j, G);
+      r.dec_amount = __shfl_sync(kFull, mine.dec_amount, j, G);
+      int k = __shfl_sync(kFull, k_mine, j, G);
+      if (live == 0) k = 0;  // this group's chunk is done: it only keeps step
+      live &= live - 1;
+      if (ga.table == nullptr) {
+        march_flat<G>(r, k, lane, tx, ty, tz, pack, g, cos_thresh, out);
+      } else {
+        const uint2 c = march_gated<G>(r, k, lane, gshift, tx, ty, tz, pack, g,
+                                       ga, cos_thresh, out);
+        survived += c.x;
+        segments += c.y;
       }
     }
   }
-  if (counts == nullptr) return;
-  // every thread of the warp reaches here: sum the warp's counts first
+  if (out.counts == nullptr) return;
+  // every lane of a group holds the group's counts: its lane 0 contributes
+  // them, a warp and then the block sum them, and thread 0 adds the block's
+  __shared__ unsigned long long block_sums[2][kThreads / 32];
+  if (lane != 0) survived = segments = 0;
   for (int off = 16; off > 0; off >>= 1) {
     survived += __shfl_down_sync(0xffffffffu, survived, off);
     segments += __shfl_down_sync(0xffffffffu, segments, off);
   }
-  if ((threadIdx.x & 31) == 0 && segments > 0) {
-    atomicAdd(counts, survived);
-    atomicAdd(counts + 1, segments);
+  if ((threadIdx.x & 31) == 0) {
+    block_sums[0][threadIdx.x >> 5] = survived;
+    block_sums[1][threadIdx.x >> 5] = segments;
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    survived = segments = 0;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      survived += block_sums[0][w];
+      segments += block_sums[1][w];
+    }
+    if (segments > 0) {
+      atomicAdd(out.counts, survived);
+      atomicAdd(out.counts + 1, segments);
+    }
+  }
+}
+
+int log2_exact(int x) {
+  for (int s = 0; s < 31; ++s) {
+    if (x == (1 << s)) return s;
+  }
+  return -1;
+}
+
+template <int G>
+cudaError_t launch_march(const float4* pack, const float* points,
+                         const bool* valid, const float* t, const GateArgs& ga,
+                         const Outputs& out, int64_t n_rays, const Grid& g,
+                         float max_ray_length, float cleanup_step,
+                         float cos_thresh, cudaStream_t st) {
+  // as many blocks as the card holds at once, or fewer when the rays need
+  // fewer: the groups then stride over the chunks of rays
+  static int64_t resident = 0;  // of this instantiation, on the first device seen
+  if (resident == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, exact_march_kernel<G>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (sms <= 0 || per_sm <= 0) return cudaErrorInvalidValue;
+    resident = static_cast<int64_t>(sms) * per_sm;
+  }
+  const int64_t n_chunks = (n_rays + G - 1) / G;
+  const int64_t needed = (n_chunks * G + kThreads - 1) / kThreads;
+  const int64_t blocks = needed < resident ? needed : resident;
+  exact_march_kernel<G><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      pack, points, valid, t, ga, out, n_rays, g, max_ray_length, cleanup_step,
+      cos_thresh);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // pack (n*n, 8) float32 cell rows; points (n_rays, 3) float32 ray end
 // points and valid (n_rays,) bool, both in the map-center frame; t (3,)
-// float32 sensor position; gate (nb*nb,) float32 or null; dec, hits, ubmin
-// (n*n,) float32, zeroed (ubmin: +inf) by the caller; counts (2,) int64
-// zeroed by the caller, or null without a gate. Launches on `stream` and
-// does not synchronise.
+// float32 sensor position; gate (nb*nb,) float32 or null; outputs
+// (4 + 4*n*n,) float32, uninitialised and 8-byte aligned: initialised here
+// and then holding the two int64 counts (surviving, live segments), the
+// (n*n, 2) decrement and hit count, the (n*n,) upper bound (+inf where
+// unwritten) and (n*n,) of scratch. `lanes` (16 or 32) is the number of
+// lanes that march one ray. Works on `stream` and does not synchronise.
 extern "C" int exact_march(const void* pack, const void* points,
                            const void* valid, const void* t, const void* gate,
-                           void* dec, void* hits, void* ubmin, void* counts,
-                           int64_t n_rays, int32_t n, float res, float step,
-                           int32_t n_steps, float max_ray_length,
+                           void* outputs, int64_t n_rays, int32_t n, float res,
+                           float step, int32_t n_steps, float max_ray_length,
                            float cleanup_step, float cos_thresh, int32_t seg,
                            int32_t block, int32_t nb, float gate_eps,
-                           void* stream) {
+                           int32_t lanes, void* stream) {
   if (n_rays == 0) return static_cast<int>(cudaSuccess);
-  const int64_t blocks = (n_rays + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffff || n <= 2 || n_steps < 0 ||
-      (gate != nullptr && (seg <= 0 || block <= 0))) {
+  if (n <= 2 || n_steps < 0 || (gate != nullptr && (seg <= 0 || block <= 0)) ||
+      (reinterpret_cast<uintptr_t>(outputs) & 7u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t n2 = static_cast<int64_t>(n) * n;
+  float* buf = static_cast<float*>(outputs);
+  const int64_t n_zero = 4 + 2 * n2, n_all = 4 + 4 * n2;
+  const float4* p = static_cast<const float4*>(pack);
+  init_outputs_kernel<<<static_cast<unsigned>((n_all + kThreads - 1) / kThreads),
+                        kThreads, 0, st>>>(p, buf, n2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
   const Grid g{n, res, 0.5f * static_cast<float>(n), step, n_steps};
-  exact_march_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(pack), static_cast<const float*>(points),
-      static_cast<const bool*>(valid), static_cast<const float*>(t),
-      static_cast<const float*>(gate), static_cast<float*>(dec),
-      static_cast<float*>(hits), static_cast<float*>(ubmin),
-      static_cast<unsigned long long*>(counts), n_rays, g, max_ray_length,
-      cleanup_step, cos_thresh, seg, block, nb, gate_eps);
-  return static_cast<int>(cudaGetLastError());
+  const GateArgs ga{static_cast<const float*>(gate), seg, log2_exact(seg),
+                    block, log2_exact(block), nb, gate_eps};
+  const Outputs out{
+      reinterpret_cast<float2*>(buf + 4), buf + n_zero, buf + n_zero + n2,
+      gate != nullptr ? reinterpret_cast<unsigned long long*>(buf) : nullptr};
+  const float* pts = static_cast<const float*>(points);
+  const bool* v = static_cast<const bool*>(valid);
+  const float* tp = static_cast<const float*>(t);
+  switch (lanes) {
+    case 16:
+      err = launch_march<16>(p, pts, v, tp, ga, out, n_rays, g, max_ray_length,
+                             cleanup_step, cos_thresh, st);
+      break;
+    case 32:
+      err = launch_march<32>(p, pts, v, tp, ga, out, n_rays, g, max_ray_length,
+                             cleanup_step, cos_thresh, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

@@ -52,16 +52,23 @@ __all__ = [
     "exact_march_reference",
     "ray_steps",
     "ray_table",
+    "steps_below",
 ]
 
 KERNEL = CudaKernel(
     "exact_march.cu",
     "exact_march",
-    [ctypes.c_void_p] * 9
+    [ctypes.c_void_p] * 6
     + [ctypes.c_int64, ctypes.c_int32, ctypes.c_float, ctypes.c_float, ctypes.c_int32,
        ctypes.c_float, ctypes.c_float, ctypes.c_float,
-       ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_float, ctypes.c_void_p],
+       ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_float, ctypes.c_int32, ctypes.c_void_p],
 )
+
+# lanes of a warp that march one ray together (16 or 32), without and with
+# a gate: a gated ray has only its surviving segments' few steps to spread
+# over them
+LANES_FLAT = 32
+LANES_GATED = 16
 
 # floats per cell row of the pack: seven values and a pad, so that the
 # kernel reads a row as two 16-byte loads
@@ -96,6 +103,35 @@ def ray_steps(cfg: MapConfig, device) -> torch.Tensor:
     rounded as the JAX package rounds them."""
     step = torch.tensor(cfg.ray_step, dtype=torch.float32, device=device)
     return torch.arange(1, cfg.n_ray_steps + 1, dtype=torch.float32, device=device) * step
+
+
+def steps_below(x: torch.Tensor, inclusive: bool, step: float, n_steps: int) -> torch.Tensor:
+    """Steps m in [0, n_steps) with ``s_m < x`` (``s_m <= x`` when
+    ``inclusive``), ``s_m = float32((m + 1) * step)``, for float32 ``x``
+    without NaN: K2's closed-form step count (csrc/exact_march.cu,
+    ``steps_below``), mirrored here so that the CPU tests can hold it to
+    ``torch.searchsorted`` over :func:`ray_steps` (side "left", or "right"
+    when inclusive). The first guess is the quotient ``x / step``; single
+    steps up, then down, move it until ``s_{c-1}`` is below x and ``s_c`` is
+    not. s_m grows with m, so that count is unique."""
+    step32 = torch.tensor(step, dtype=torch.float32, device=x.device)
+
+    def below(c):  # s_{c-1} = fl(c * step) is below x
+        s = c.to(torch.float32) * step32
+        return (s <= x) if inclusive else (s < x)
+
+    c = torch.clamp(x / step32, min=0.0, max=float(n_steps)).to(torch.int64)
+    while True:
+        up = (c < n_steps) & below(c + 1)
+        if not bool(up.any()):
+            break
+        c = c + up.to(torch.int64)
+    while True:
+        down = (c > 0) & ~below(c)
+        if not bool(down.any()):
+            break
+        c = c - down.to(torch.int64)
+    return c
 
 
 def _fma(a, b, c):
@@ -286,7 +322,10 @@ def exact_march(
     gate: Optional[Gate] = None,
 ) -> MarchResult:
     """The exact march: see :func:`exact_march_reference` for the contract.
-    CUDA tensors go to the kernel; CPU tensors to the plain version."""
+    CUDA tensors go to the kernel; CPU tensors to the plain version. From
+    the kernel, ``dec`` and ``hits`` are the two columns of one (n*n, 2)
+    buffer, views of stride 2; ``ubmin`` and ``counts`` are views of the same
+    allocation. The plain version returns contiguous tensors."""
     _check(pack, world, valid, t, cfg, gate)
     if pack.device.type == "cpu":
         return exact_march_reference(pack, world, valid, t, cfg, gate)
@@ -296,27 +335,33 @@ def exact_march(
     if any(x.dtype != torch.float32 for x in tensors):
         raise TypeError("exact_march's kernel takes float32 pack, world, t and gate table")
     n = cfg.cell_n
+    n2 = n * n
     dev = pack.device
     pack, world, valid, t = (x.contiguous() for x in (pack, world, valid, t))
-    dec = torch.zeros(n * n, dtype=torch.float32, device=dev)
-    hits = torch.zeros(n * n, dtype=torch.float32, device=dev)
-    ubmin = torch.full((n * n,), math.inf, dtype=torch.float32, device=dev)
-    counts = None
-    gate_ptr, counts_ptr, seg, block, nb, eps = None, None, 0, 0, 0, 0.0
+    gate_ptr, seg, block, nb, eps = None, 0, 0, 0, 0.0
     if gate is not None:
-        counts = torch.zeros(2, dtype=torch.int64, device=dev)
         table = gate.table.contiguous()
-        gate_ptr, counts_ptr = table.data_ptr(), counts.data_ptr()
+        gate_ptr = table.data_ptr()
         seg, block, eps = gate.seg, gate.block, gate.eps
         nb = -(-n // block)
-    if world.shape[0] == 0:
-        return MarchResult(dec, hits, ubmin, counts)
+    if world.shape[0] == 0:  # nothing to march: no launch
+        zeros = torch.zeros(2 * n2, dtype=torch.float32, device=dev)
+        ubmin = torch.full((n2,), math.inf, dtype=torch.float32, device=dev)
+        counts = torch.zeros(2, dtype=torch.int64, device=dev) if gate is not None else None
+        return MarchResult(zeros[:n2], zeros[n2:], ubmin, counts)
+    # one buffer for every output, initialised by the entry point on the
+    # stream: 4 floats that hold the two int64 counts, the (n*n, 2)
+    # decrement and hit count (one float2 atomic adds both), the upper bound,
+    # and n*n of the kernel's scratch
+    buf = torch.empty(4 + 4 * n2, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         KERNEL.launch(
-            pack.data_ptr(), world.data_ptr(), valid.data_ptr(), t.data_ptr(), gate_ptr,
-            dec.data_ptr(), hits.data_ptr(), ubmin.data_ptr(), counts_ptr,
+            pack.data_ptr(), world.data_ptr(), valid.data_ptr(), t.data_ptr(), gate_ptr, buf.data_ptr(),
             world.shape[0], n, cfg.resolution, cfg.ray_step, cfg.n_ray_steps,
             cfg.max_ray_length, cfg.cleanup_step, cfg.cleanup_cos_thresh,
-            seg, block, nb, eps, torch.cuda.current_stream().cuda_stream,
+            seg, block, nb, eps, LANES_GATED if gate is not None else LANES_FLAT,
+            torch.cuda.current_stream().cuda_stream,
         )
-    return MarchResult(dec, hits, ubmin, counts)
+    dechits = buf[4 : 4 + 2 * n2].view(n2, 2)
+    counts = buf[:4].view(torch.int64) if gate is not None else None
+    return MarchResult(dechits[:, 0], dechits[:, 1], buf[4 + 2 * n2 : 4 + 3 * n2], counts)

@@ -11,19 +11,59 @@ the tests compare with the JAX kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ..kernels import CudaKernel
 
-__all__ = ["KERNEL", "scatter_add_streams", "scatter_add_streams_reference"]
+__all__ = ["KERNEL", "LaunchPlan", "launch_plan", "scatter_add_streams", "scatter_add_streams_reference"]
 
 KERNEL = CudaKernel(
     "scatter_add.cu",
     "scatter_add_streams",
     [ctypes.c_void_p] * 4
-    + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p],
+    + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+       ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p],
 )
+
+# dynamic shared memory one block can opt into on Hopper (227 KB)
+MAX_SHARED_BYTES = 232448
+# streaming multiprocessors of an H100: the private path, one block an SM at
+# the deployed map size, cuts the points into as many slices as fill them
+SM_COUNT = 132
+# fewest points worth a slice of their own: a block zeroes and scans a whole
+# map tile whatever its slice holds
+MIN_SLICE_POINTS = 1024
+PRIVATE_THREADS = 1024
+GLOBAL_THREADS = 256
+
+
+class LaunchPlan(NamedTuple):
+    """How K1 runs one shape (csrc/scatter_add.cu): on the ``private`` path
+    ``slices`` x K x B blocks of ``threads`` threads, each with a tile of
+    ``shared_bytes`` in shared memory and ``slices`` slices of the points
+    per (batch, stream); on the ``global`` path one thread per (batch,
+    point) and no shared memory."""
+
+    path: str
+    slices: int
+    threads: int
+    shared_bytes: int
+    blocks: int
+
+
+def launch_plan(b: int, k: int, n: int, n_cells: int) -> LaunchPlan:
+    """The path K1 takes for idx (b, n), values (b, k, n) and ``n_cells``
+    cells, from the shape alone: ``private`` when one stream's float32 map
+    fits in a block's shared memory, else ``global``. A private launch fills
+    at most ``max(SM_COUNT, k * b)`` blocks."""
+    shared = 4 * n_cells
+    if shared > MAX_SHARED_BYTES:
+        return LaunchPlan("global", 0, GLOBAL_THREADS, 0, -(-b * n // GLOBAL_THREADS))
+    pairs = max(b * k, 1)
+    slices = max(1, min(SM_COUNT // pairs, -(-n // MIN_SLICE_POINTS)))
+    return LaunchPlan("private", slices, PRIVATE_THREADS, shared, slices * k * b)
 
 
 def _check(idx: torch.Tensor, mask: torch.Tensor, values: torch.Tensor) -> None:
@@ -73,12 +113,15 @@ def scatter_add_streams(
     if not (idx.is_contiguous() and mask.is_contiguous() and values.is_contiguous()):
         raise ValueError("scatter_add_streams needs contiguous tensors")
     b, k, n = values.shape
-    out = torch.zeros((b, k, n_cells), dtype=torch.float32, device=values.device)
-    if b * n == 0 or k == 0:
-        return out
+    if b * n == 0 or k == 0 or n_cells == 0:
+        return torch.zeros((b, k, n_cells), dtype=torch.float32, device=values.device)
+    plan = launch_plan(b, k, n, n_cells)
+    # the entry point zeroes the output on the stream before it adds
+    out = torch.empty((b, k, n_cells), dtype=torch.float32, device=values.device)
     with torch.cuda.device(values.device):
         KERNEL.launch(
             idx.data_ptr(), mask.data_ptr(), values.data_ptr(), out.data_ptr(),
-            b, n, k, n_cells, torch.cuda.current_stream().cuda_stream,
+            b, n, k, n_cells, plan.slices, plan.shared_bytes,
+            torch.cuda.current_stream(values.device).cuda_stream,
         )
     return out

@@ -7,6 +7,8 @@ installed, without the suite's conftest (which sets JAX up):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,7 @@ import torch
 import chip_smoke
 from elevation_mapping_cupy_torch import MapConfig, core
 from elevation_mapping_cupy_torch.mapper import ElevationMap
-from elevation_mapping_cupy_torch.ops import cuda_march, cuda_scatter
+from elevation_mapping_cupy_torch.ops import cuda_march, cuda_scatter, raycast
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +51,59 @@ def test_kernel_matches_plain_version(card, exact):
         torch.testing.assert_close(got[:, s], want[:, s], rtol=0, atol=0 if e else 2e-4)
 
 
+def _scatter_case(card, rng, b, k, n, n_cells, idx, exact):
+    """K1 against its plain version on (b, k, n) streams over ``idx``:
+    integer streams bit for bit, value streams within 2e-4 relative to
+    max(1, |sum|) (a hot cell sums tens of thousands of values)."""
+    mask = torch.from_numpy(rng.random((b, n)) > 0.1).to(card)
+    vals = rng.normal(0.5, 0.3, (b, k, n)).astype(np.float32)
+    for s, e in enumerate(exact):
+        if e:
+            vals[:, s] = rng.integers(0, 3, (b, n))
+    vals = torch.from_numpy(vals).to(card)
+    idx = torch.from_numpy(idx.astype(np.int32)).to(card)
+    before = cuda_scatter.KERNEL.launches
+    got = cuda_scatter.scatter_add_streams(idx, mask, vals, n_cells)
+    torch.cuda.synchronize()
+    assert cuda_scatter.KERNEL.launches == before + 1
+    want = cuda_scatter.scatter_add_streams_reference(idx, mask, vals, n_cells)
+    assert got.shape == (b, k, n_cells)
+    for s, e in enumerate(exact):
+        if e:
+            assert torch.equal(got[:, s], want[:, s]), f"integer stream {s}"
+        else:
+            rel = ((got[:, s] - want[:, s]).abs() / want[:, s].abs().clamp(min=1.0)).max()
+            assert float(rel) <= 2e-4, f"value stream {s}: {float(rel)}"
+
+
+@pytest.mark.parametrize("hot_cells", [1, 16])
+def test_kernel_with_every_point_on_a_few_cells(card, hot_cells):
+    """The most contended input: 131072 points on 1 or 16 cells of the
+    deployed map (shared-memory path)."""
+    rng = np.random.default_rng(1)
+    n, n_cells = 131072, 202 * 202
+    assert cuda_scatter.launch_plan(1, 4, n, n_cells).path == "private"
+    cells = rng.choice(n_cells, hot_cells, replace=False)
+    idx = cells[rng.integers(0, hot_cells, (1, n))]
+    _scatter_case(card, rng, 1, 4, n, n_cells, idx, (False, False, True, True))
+
+
+@pytest.mark.parametrize(
+    "b, k, n_cells, path",
+    [(1, 2, 58112, "private"), (1, 2, 58113, "global"), (1, 4, 400 * 400, "global"), (4, 7, 202 * 202, "private")],
+)
+def test_kernel_paths_by_map_size(card, b, k, n_cells, path):
+    """Both paths of K1 at the sizes where the choice turns (58112 cells is
+    the largest map that fits in shared memory), a 400x400 map, and B=4
+    with K=7 in one launch; indices include some outside the map."""
+    rng = np.random.default_rng(2)
+    n = 50000
+    assert cuda_scatter.launch_plan(b, k, n, n_cells).path == path
+    idx = rng.integers(-3, n_cells + 3, (b, n))
+    exact = tuple(s % 2 == 1 for s in range(k))
+    _scatter_case(card, rng, b, k, n, n_cells, idx, exact)
+
+
 def test_wrapper_refuses_non_contiguous(card):
     vals = torch.ones((1, 4, 2), device=card).transpose(1, 2)  # (1, 2, 4), strided
     with pytest.raises(ValueError, match="contiguous"):
@@ -81,6 +136,8 @@ def test_update_on_card_matches_cpu(card):
 
 
 SMALL_KW = dict(resolution=0.1, map_length=4.0, max_ray_length=1.5, max_points=8192)
+# 82x82 cells and 141 march steps: rays long enough for several passes of 32 lanes
+SYNTHETIC_KW = dict(resolution=0.05, map_length=4.0, max_ray_length=5.0, max_points=8192)
 
 
 def _aged_map(cfg, n_points: int):
@@ -98,13 +155,23 @@ def _aged_map(cfg, n_points: int):
     return state
 
 
+def _assert_march_equal(got, want, gated):
+    assert torch.equal(got.hits, want.hits)
+    assert torch.equal(got.ubmin, want.ubmin)
+    if gated:
+        assert torch.equal(got.counts, want.counts)
+    assert float(((got.dec - want.dec).abs() / want.dec.abs().clamp(min=1.0)).max()) <= 2e-4
+
+
 @pytest.mark.parametrize("gated", [True, False])
-@pytest.mark.parametrize("shape", ["small", "deployed"])
+@pytest.mark.parametrize("shape", ["small", "deployed", "default"])
 def test_march_kernel_matches_plain_version(card, shape, gated):
     """K2 against its plain version: hit counts, upper bounds and segment
     counts equal, the decrement within 2e-4 relative to max(1, |sum|)."""
     if shape == "small":
         cfg, n_rays = MapConfig(**SMALL_KW, raycast_mode="exact"), 8192
+    elif shape == "default":  # 2 m rays: 70 steps
+        cfg, n_rays = MapConfig(raycast_mode="exact"), 32768
     else:
         cfg, n_rays = chip_smoke.deployed_config().replace(raycast_mode="exact"), 131072
     state = _aged_map(cfg, n_rays)
@@ -117,11 +184,74 @@ def test_march_kernel_matches_plain_version(card, shape, gated):
     assert cuda_march.KERNEL.launches == before + 1
     want = cuda_march.exact_march_reference(pack, world, valid, t, cfg, gate)
     assert float(want.hits.sum()) > 0 and bool(torch.isfinite(want.ubmin).any())
-    assert torch.equal(got.hits, want.hits)
-    assert torch.equal(got.ubmin, want.ubmin)
+    _assert_march_equal(got, want, gated)
     if gated:
-        assert torch.equal(got.counts, want.counts) and 0 < int(got.counts[0]) <= int(got.counts[1])
-    assert float(((got.dec - want.dec).abs() / want.dec.abs().clamp(min=1.0)).max()) <= 2e-4
+        assert 0 < int(got.counts[0]) <= int(got.counts[1])
+
+
+def synthetic_march_inputs(cfg, kind: str, lanes: int, device, gated: bool):
+    """K2's inputs on a made-up map where nearly every sample writes: a
+    third of the cells invalid (upper-bound writes), the others eligible
+    and 10 m high (every sample penetrates them) with an upper bound on
+    every other row, and the far rows neither (the gate culls them).
+
+    ``kind`` "parallel": 4096 rays along one line, so one column of cells
+    takes every hit. "lengths": rays in all directions whose live-step
+    counts cover 0, 1, lanes - 1, lanes, lanes + 1 and 2 * lanes + 1, where
+    a ray ends in or one past a pass of its group of lanes."""
+    n = cfg.cell_n
+    ii, jj = torch.meshgrid(torch.arange(n), torch.arange(n), indexing="ij")
+    code = torch.where((ii + jj) % 3 == 0, 1.0, 2.0)
+    code = torch.where(ii >= (3 * n) // 4, 0.0, code)
+    ub_thresh = torch.where((code == 1.0) | (ii % 2 == 0), math.inf, 0.1)
+    ones = torch.ones(n, n)
+    pack = torch.stack(
+        [10.0 * ones, 0.05 * ones, ub_thresh, code, 0.1 * ones, 0.05 * ones, 0.99 * ones, 0.0 * ones], dim=-1
+    ).reshape(n * n, cuda_march.PACK_WIDTH).to(torch.float32)
+    t = torch.tensor([0.03, -0.02, 0.4], dtype=torch.float32)
+    rng = np.random.default_rng(12)
+    if kind == "parallel":
+        length = rng.uniform(0.5, 0.98 * cfg.max_ray_length, 4096)
+        u = np.array([0.75, 0.25, -0.6]) / np.linalg.norm([0.75, 0.25, -0.6])
+        world = t.numpy() + length[:, None] * u
+    else:
+        m = 4096
+        length = np.linspace(0.05, (2 * lanes + 4) * cfg.ray_step + 0.4, m)
+        az = rng.uniform(-math.pi, math.pi, m)
+        u = np.stack([np.cos(az) * 0.8, np.sin(az) * 0.8, np.full(m, -0.6)], 1)
+        world = t.numpy() + length[:, None] * u
+    world = torch.from_numpy(world.astype(np.float32))
+    valid = torch.ones(world.shape[0], dtype=torch.bool)
+    pack, world, valid, t = (x.to(device) for x in (pack, world, valid, t))
+    gate = raycast.exact_gate(pack, cfg) if gated else None
+    return pack, world, valid, t, gate
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("kind", ["parallel", "lengths"])
+def test_march_kernel_on_synthetic_rays(card, kind, gated):
+    """K2 where one column of cells takes every hit, and on rays whose
+    live-step counts sit at the edges of a pass of their lanes; two runs of
+    the same inputs give equal hit counts, upper bounds and segment counts."""
+    cfg = MapConfig(**SYNTHETIC_KW, raycast_mode="exact")
+    lanes = cuda_march.LANES_GATED if gated else cuda_march.LANES_FLAT
+    pack, world, valid, t, gate = synthetic_march_inputs(cfg, kind, lanes, card, gated)
+    if kind == "lengths":
+        k = cuda_march.ray_table(world, valid, t, cfg)[1]
+        for want_k in (0, 1, lanes - 1, lanes, lanes + 1, 2 * lanes + 1):
+            assert bool((k == want_k).any()), f"no ray with {want_k} live steps"
+    got = cuda_march.exact_march(pack, world, valid, t, cfg, gate)
+    again = cuda_march.exact_march(pack, world, valid, t, cfg, gate)
+    torch.cuda.synchronize()
+    want = cuda_march.exact_march_reference(pack, world, valid, t, cfg, gate)
+    assert float(want.hits.sum()) > 0 and bool(torch.isfinite(want.ubmin).any())
+    _assert_march_equal(got, want, gated)
+    assert torch.equal(got.hits, again.hits) and torch.equal(got.ubmin, again.ubmin)
+    if gated:
+        assert torch.equal(got.counts, again.counts)
+        assert 0 < int(got.counts[0]) <= int(got.counts[1])
+        if kind == "parallel":  # the long rays reach the rows the gate culls
+            assert int(got.counts[0]) < int(got.counts[1])
 
 
 def test_march_kernel_empty_and_masked(card):
