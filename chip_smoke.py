@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              (one process per source, all started together).
 3. kernels - K1 against its plain PyTorch version on the card, at the main
              path's shapes (the dense-map scatters take its shared-memory
-             path, the polar cube its global path), with the call's time
+             path, the polar cube its global path) and at the semantic
+             fusions' (3 and 8 feature streams, the colour's integer streams,
+             class_max's 262144 points over 1305728 bins), with the call's time
              (CUDA events around the wrapper), the device's own time for it
              (torch.profiler), the plain version's, one PyTorch library
              call's, and the bound (bytes over 3.35 TB/s).
@@ -18,7 +20,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              shipped weights takes 20 updates of a seeded synthetic scene of
              131072 points while the robot moves (``move_to``); the polar
              cleanup runs, so every update must launch K1 exactly 3 times and
-             K2 never. The last 3 updates are rerun from the same state on
+             K2 never. The last 2 updates are rerun from the same state on
              ``device="cpu"`` and compared layer by layer. Then per-update
              latency and points/s at 10k, 131072 and 1M points, the peak
              device memory, and a torch.profiler view of where one update's
@@ -41,6 +43,26 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 7. replay  - a 3-frame log written with ``LogWriter`` and replayed through
              ``runtime.replay.replay(device="cuda")``, compared with the same
              replay on the CPU.
+8. semantic - the deployed config with ``configs/semantic_mem.yaml``'s layers
+             and fusion tables (rgb -> color, three class channels ->
+             class_average): 8 updates of 131072 points of 3 + 4 columns
+             while the robot moves, 5 K1 launches each (3 of the geometry,
+             one of 4 integer streams for the colour, one of 3 value streams
+             for the classes). Then a second map whose table sends one
+             channel each to average, bayesian_inference and class_bayesian
+             and two to class_max: 3 updates, 7 K1 launches each, the
+             class_max one over 32 x 202 x 202 bins on K1's global path. The
+             last update of each map is rerun on the CPU port from the same
+             state: float layers within 1e-4, packed colours and class ids
+             bit for bit, on 99.9 % of cells. Latency, points/s, a profile,
+             and the packed layers' round trips on the card.
+9. image   - on the first semantic map, ``input_image`` with a 4-plane
+             480x640 image (rgb -> color, mask -> exponential) from a camera
+             looking down from 1.5 m, 0.6 m ahead of the map's centre: 10 calls with the shadow
+             occlusion, 2 with the Bresenham walk, each compared with the
+             CPU port (valid on 99.5 % of cells, fused layers on the cells
+             valid in both); latency and device time of each mode. The image
+             path launches neither kernel.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
@@ -80,6 +102,16 @@ CMP_MIN_SHARE = 0.999
 # points: one ulp of a sum of 2000 is 1.2e-4.
 VALUE_TOL = 2e-4
 EXACT_UPDATES = 8
+MAIN_CMP_UPDATES = 2
+SEMANTIC_UPDATES = 8
+ALL_FUSIONS_UPDATES = 3
+IMAGE_SHAPE = (480, 640)
+IMAGE_CALLS = {"shadow": 10, "bresenham": 2}
+# image path, card against CPU: atan2/cos/sin round an ulp apart, which can
+# move a cell across an azimuth bin, an image edge or a pixel boundary
+IMAGE_MIN_SHARE = 0.995
+# class_max keeps the 32 smallest distinct ids (semantic/fusions.py)
+MAX_CLASSES = 32
 EXACT_CMP_UPDATES = 2
 MARCH_RAYS = (131072, 1 << 20)
 # float32 operations that the march's function needs, an FMA counted as two
@@ -99,6 +131,11 @@ MARCH_OPS = {
     "rays": 21, "walked": 9, "fresh": 11, "tested": 1, "eligible": 3, "penetrating": 7,
     "hits": 2, "ub_writes": 1, "segments": 17,
 }
+MEM_CHANNELS = ("rgb", "grass", "tree", "person")
+ALL_FUSIONS_TABLE = (
+    ("f_avg", "average"), ("f_bayes", "bayesian_inference"), ("f_dir", "class_bayesian"), ("max_.*", "class_max"),
+)
+ALL_FUSIONS_CHANNELS = ("f_avg", "f_bayes", "f_dir", "max_a", "max_b")
 LAYERS = ["elevation", "variance", "is_valid", "traversability", "time",
           "upper_bound", "is_upper_bound", "normal_x", "normal_y", "normal_z"]
 
@@ -135,6 +172,18 @@ def deployed_config():
         dilation_size_initialize=2,
         tolerance_z_collision=0.10, image_occlusion_mode="shadow",
         max_points=131072,
+    )
+
+
+def semantic_config():
+    """The deployed config with ``configs/semantic_mem.yaml``'s semantic
+    keys (tests/test_torch_core.py holds them to the YAML)."""
+    return deployed_config().replace(
+        semantic_layers=MEM_CHANNELS,
+        pointcloud_channel_fusions=(("rgb", "color"), ("default", "class_average")),
+        image_channel_fusions=(("rgb", "color"), ("default", "exponential")),
+        average_weight=0.5,
+        image_exponential_alpha=0.7,
     )
 
 
@@ -183,6 +232,37 @@ def scene_cloud(rng: np.random.Generator, n: int, R: np.ndarray, t: np.ndarray, 
     world = np.stack([np.concatenate([x, wx]), np.concatenate([y, wy]), np.concatenate([z, wz])], 1)
     world += rng.normal(0.0, 0.01, world.shape)
     return ((world - t) @ R).astype(np.float32)  # R^T (p - t), row-wise
+
+
+def pack_rgb(rgb: np.ndarray) -> np.ndarray:
+    """(..., 3) integers 0-255 -> float32 with the bits 0x00RRGGBB."""
+    rgb = rgb.astype(np.uint32)
+    return ((rgb[..., 0] << 16) | (rgb[..., 1] << 8) | rgb[..., 2]).view(np.float32)
+
+
+def pack_class(prob: np.ndarray, cls: np.ndarray) -> np.ndarray:
+    """float32 with the class id in the high and float16(prob) in the low 16
+    bits (past 65504 the half is infinity)."""
+    with np.errstate(over="ignore"):
+        half = prob.astype(np.float16).view(np.uint16)
+    return ((cls.astype(np.uint32) << 16) | half).view(np.float32)
+
+
+def mem_cloud(rng: np.random.Generator, n: int, R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """The scene with a packed colour and three class scores in [0, 1] per point."""
+    return np.concatenate(
+        [scene_cloud(rng, n, R, t), pack_rgb(rng.integers(0, 256, (n, 3)))[:, None],
+         rng.random((n, 3), dtype=np.float32)], axis=1,
+    )
+
+
+def all_fusions_cloud(rng: np.random.Generator, n: int, R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """The scene with three feature columns (the third in [-1, 1]: class_bayesian
+    drops the negatives) and two class_max columns of 8 ids."""
+    feats = rng.random((n, 3), dtype=np.float32)
+    feats[:, 2] = 2.0 * feats[:, 2] - 1.0
+    packed = pack_class(rng.uniform(0.2, 1.0, (n, 2)).astype(np.float32), rng.integers(1, 9, (n, 2)))
+    return np.concatenate([scene_cloud(rng, n, R, t), feats, packed], axis=1)
 
 
 # ---------------------------------------------------------------------------
@@ -272,19 +352,21 @@ def _cell_indices(rng, b: int, n: int, n_cells: int) -> np.ndarray:
     return np.clip(n_cells * rng.beta(2.0, 3.0, (b, n)), 0, n_cells - 1).astype(np.int32)
 
 
-def check_scatter_case(rng, label: str, b: int, n: int, n_cells: int, exact, timed: bool = True):
+def check_scatter_case(rng, label: str, b: int, n: int, n_cells: int, exact, timed: bool = True,
+                       int_max: int = 1, idx_np=None):
     """K1 against its plain version on the card at one shape; returns the
-    measured numbers."""
+    measured numbers. Integer streams hold 0..int_max; ``idx_np`` gives the
+    (b, n) indices where the default density does not fit the caller."""
     from elevation_mapping_cupy_torch.ops import cuda_scatter as cs
 
     k = len(exact)
     dev = "cuda"
-    idx = torch.from_numpy(_cell_indices(rng, b, n, n_cells)).to(dev)
+    idx = torch.from_numpy(_cell_indices(rng, b, n, n_cells) if idx_np is None else idx_np).to(dev)
     mask = torch.from_numpy(rng.random((b, n)) > 0.15).to(dev)
     vals_np = rng.normal(0.5, 0.3, (b, k, n)).astype(np.float32)
     for s, e in enumerate(exact):
         if e:
-            vals_np[:, s] = rng.integers(0, 2, (b, n))
+            vals_np[:, s] = rng.integers(0, int_max + 1, (b, n))
     vals = torch.from_numpy(vals_np).to(dev)
 
     got = cs.scatter_add_streams(idx, mask, vals, n_cells)
@@ -350,8 +432,23 @@ def phase_kernels(cfg):
             rng, f"point fusion N={n}", 1, n, cells, (False, False, True, True)
         )
         cases[("cube", n)] = check_scatter_case(rng, f"polar cube N={n}", 1, n, bins, (True, False))
+    # the semantic fusions' launches (semantic/fusions.py): L feature streams
+    # (_sum_features), the colour's count and r, g, b as integers 0-255 (one
+    # launch of 4 in the port, of 1 and of 3 in the JAX package), and
+    # class_max's (point, layer) pairs over (bucket, cell) bins
+    n = MAIN_POINTS
+    cases[("features3", n)] = check_scatter_case(rng, f"semantic features K=3 N={n}", 1, n, cells, (False,) * 3)
+    cases[("features8", n)] = check_scatter_case(rng, f"semantic features K=8 N={n}", 1, n, cells, (False,) * 8)
+    cases[("colour4", n)] = check_scatter_case(rng, f"colour count+rgb K=4 N={n}", 1, n, cells, (True,) * 4, int_max=255)
+    cases[("colour3", n)] = check_scatter_case(rng, f"colour rgb K=3 N={n}", 1, n, cells, (True,) * 3, int_max=255)
+    cases[("count1", n)] = check_scatter_case(rng, f"colour count K=1 N={n}", 1, n, cells, (True,))
+    pairs = np.repeat(_cell_indices(rng, 1, n, cells), 2, axis=1)
+    pairs = (pairs + cells * rng.integers(0, 9, pairs.shape)).astype(np.int32)  # 8 ids and the 0 of an empty map
+    cases[("cube_class_max", n)] = check_scatter_case(
+        rng, f"class_max K=1 N={2 * n} bins={MAX_CLASSES * cells}", 1, 2 * n, MAX_CLASSES * cells, (False,), idx_np=pairs
+    )
     for (kind, n), res in cases.items():
-        want = "global" if kind == "cube" else "private"
+        want = "global" if kind.startswith("cube") else "private"
         if res["path"] != want:
             raise AssertionError(f"K1 {kind} N={n} took the {res['path']} path, expected {want}")
     check_scatter_case(rng, "zero points", 1, 0, cells, (True, True), timed=False)
@@ -362,22 +459,37 @@ def phase_kernels(cfg):
     return cases
 
 
-def _compare_layers(tag: str, got: dict, want: dict) -> dict:
+def _compare_layers(tag: str, got: dict, want: dict, packed=(), min_share: float = CMP_MIN_SHARE, where=None,
+                    sums=()) -> dict:
+    """Share of cells on which the card's layers agree with the CPU run's:
+    within CMP_ATOL, or bit for bit for the names in ``packed`` (colour
+    layers and class ids, integers in a float's bits). The names in ``sums``
+    are per-cell sums of up to thousands of values, added in another order
+    on the card: they are held to CMP_ATOL relative to max(1, |sum|), as
+    K1's value streams are. ``where`` limits the comparison to a mask of
+    cells."""
     stats = {}
     for name in want:
         a, b = got[name], want[name]
-        both_nan = np.isnan(a) & np.isnan(b)
-        close = both_nan | (np.abs(np.nan_to_num(a, nan=1e9) - np.nan_to_num(b, nan=1e9)) <= CMP_ATOL)
+        if where is not None:
+            a, b = a[where], b[where]
+        if name in packed:
+            close = np.ascontiguousarray(a).view(np.uint32) == np.ascontiguousarray(b).view(np.uint32)
+            stats[name] = {"share_equal_bits": float(close.mean())}
+        else:
+            both_nan = np.isnan(a) & np.isnan(b)
+            scale = np.maximum(1.0, np.abs(np.nan_to_num(b))) if name in sums else 1.0
+            close = both_nan | (np.abs(np.nan_to_num(a, nan=1e9) - np.nan_to_num(b, nan=1e9)) <= CMP_ATOL * scale)
+            finite = np.isfinite(a) & np.isfinite(b)
+            stats[name] = {
+                "share_within": float(close.mean()),
+                "max_abs": float(np.abs(a[finite] - b[finite]).max()) if finite.any() else 0.0,
+            }
         share = float(close.mean())
-        finite = np.isfinite(a) & np.isfinite(b)
-        stats[name] = {
-            "share_within": share,
-            "max_abs": float(np.abs(a[finite] - b[finite]).max()) if finite.any() else 0.0,
-        }
-        if not share >= CMP_MIN_SHARE:
+        if not share >= min_share:
             raise AssertionError(
-                f"{tag}: layer {name}: {share:.5f} of cells within {CMP_ATOL} of the CPU run "
-                f"(need {CMP_MIN_SHARE})"
+                f"{tag}: layer {name}: {share:.5f} of cells "
+                f"{'equal in bits to' if name in packed else f'within {CMP_ATOL} of'} the CPU run (need {min_share})"
             )
     return stats
 
@@ -413,7 +525,7 @@ def phase_main(cfg, kernel_regs):
     lat, cmp_stats = [], []
     for k in range(2, 2 + N_UPDATES):
         pts, R, t, noise = update(k, MAIN_POINTS)
-        last = k >= 2 + N_UPDATES - 3
+        last = k >= 2 + N_UPDATES - MAIN_CMP_UPDATES
         if last:
             before = state_to_numpy(em.state)
         torch.cuda.synchronize()
@@ -693,21 +805,271 @@ def phase_replay(cfg, kernel_regs):
     log("replay: " + json.dumps({"frames": len(got), "launches": launches, "cpu_compare": stats}))
 
 
-def profile_updates(em, rng, n_updates: int = 5, pose: int = 300) -> dict:
+# ---------------------------------------------------------------------------
+# semantic layers and the image path
+# ---------------------------------------------------------------------------
+
+def _semantic_names(cfg):
+    return LAYERS + list(cfg.semantic_layers)
+
+
+def _state_layers(state, cfg) -> dict:
+    """sem_new and id_max rows by layer name, as host arrays (id_max as the
+    float32 with its bits, so that ``_compare_layers`` can hold it bit for bit)."""
+    sem_new = state.sem_new.cpu().numpy()
+    ids = state.id_max.cpu().numpy().astype(np.uint32)
+    out = {}
+    for i, name in enumerate(cfg.semantic_layers):
+        out[f"sem_new:{name}"] = sem_new[i]
+        out[f"id_max:{name}"] = ids[i].view(np.float32)
+    return out
+
+
+def drive_semantic(tag, cfg, kernel_regs, make_cloud, channels, n_updates, k1_per_update, packed, seed):
+    """``n_updates`` semantic updates of MAIN_POINTS points through
+    ``ElevationMap.input_pointcloud`` on the card while the robot moves, the
+    last rerun on the CPU port from the same state and compared."""
+    from elevation_mapping_cupy_torch.mapper import ElevationMap
+    from elevation_mapping_cupy_torch.state import state_from_numpy, state_to_numpy
+
+    names = ["x", "y", "z"] + list(channels)
+    rng = np.random.default_rng(seed)
+    em = ElevationMap(cfg, device="cuda")
+    cpu = ElevationMap(cfg, device="cpu")
+
+    def update(k: int):
+        R, t, pos = robot_pose(k)
+        em.move_to(pos, R)
+        return make_cloud(rng, MAIN_POINTS, R, t), R, t
+
+    for k in range(2):  # warm-up, not counted
+        pts, R, t = update(k)
+        em.input_pointcloud(pts, names, R, t, 0.0, 0.0)
+    torch.cuda.synchronize()
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    lat, cmp_stats = [], None
+    for k in range(2, 2 + n_updates):
+        pts, R, t = update(k)
+        last = k == 1 + n_updates
+        if last:
+            before = state_to_numpy(em.state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        em.input_pointcloud(pts, names, R, t, 0.0, 0.0)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        if last:
+            cpu.state = state_from_numpy(before, "cpu")
+            cpu.input_pointcloud(pts, names, R, t, 0.0, 0.0)
+            all_names = _semantic_names(cfg)
+            cmp_stats = _compare_layers(f"{tag} update {k}", em.get_layers(all_names), cpu.get_layers(all_names), packed)
+            ids = [f"id_max:{n}" for n in cfg.semantic_layers]
+            cmp_stats.update(_compare_layers(
+                f"{tag} update {k}", _state_layers(em.state, cfg), _state_layers(cpu.state, cfg), packed=ids,
+                sums=[f"sem_new:{n}" for n in cfg.semantic_layers],
+            ))
+    launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    check_launches(tag, launches, n_updates, {"scatter_add_streams": k1_per_update, "exact_march": 0})
+    prof = profile_updates(em, rng, n_updates=3, pose=1 + n_updates, make_cloud=make_cloud, channels=names)
+    ms = np.array(lat) * 1e3
+    med = float(np.median(ms))
+    prof["device_busy_share_of_median_latency"] = prof["device_ms_per_update"] / med
+    res = {
+        "updates": n_updates, "points": MAIN_POINTS, "columns": len(names), "channels": list(channels),
+        "latency_ms_median": med, "latency_ms_p90": float(np.percentile(ms, 90)), "latency_ms": ms.tolist(),
+        "points_per_s": MAIN_POINTS / (med / 1e3), "launches": launches, "k1_launches_per_update": k1_per_update,
+        "cpu_compare": cmp_stats, "profile": prof,
+    }
+    log(f"{tag}: " + json.dumps(res))
+    return em, res
+
+
+def check_packed_on_card(em) -> dict:
+    """The bit-packed layers on the card: the packing helpers, a state round
+    trip through NumPy, a whole-cell shift and the export, each against the
+    CPU, bit for bit. Nothing may compute on or flush a packed value."""
+    from elevation_mapping_cupy_torch import core
+    from elevation_mapping_cupy_torch.mapper import ElevationMap
+    from elevation_mapping_cupy_torch.semantic import fusions as F
+    from elevation_mapping_cupy_torch.state import state_from_numpy, state_to_numpy
+
+    def bits(x):
+        return np.ascontiguousarray(x.detach().cpu().numpy()).view(np.uint32)
+
+    def same_floats(c, g):
+        # a NaN half decodes to a NaN on both; the card's conversion does not keep its payload
+        c, g = c.cpu().numpy(), g.cpu().numpy()
+        nan = np.isnan(c)
+        return np.array_equal(nan, np.isnan(g)) and np.array_equal(c[~nan].view(np.uint32), g[~nan].view(np.uint32))
+
+    rng = np.random.default_rng(8)
+    half = np.arange(1 << 16, dtype=np.uint32)
+    mer = torch.from_numpy(((rng.integers(0, 1 << 16, 1 << 16).astype(np.uint32) << 16) | half).view(np.float32))
+    prob = torch.from_numpy(np.concatenate([rng.uniform(-70000, 70000, 50000), 10.0 ** rng.uniform(-9, 5, 50000)]).astype(np.float32))
+    cls = torch.from_numpy(rng.integers(0, 1 << 16, prob.shape[0]))
+    colour = torch.from_numpy(pack_rgb(rng.integers(0, 256, (100000, 3))))
+    for name, fn, args in (
+        ("decode_max", F.decode_max, (mer,)), ("encode_max", F.encode_max, (prob, cls)),
+        ("rgb_float_to_uint", F.rgb_float_to_uint, (colour,)),
+        ("uint_to_rgb_float", lambda c: F.uint_to_rgb_float(*F.rgb_float_to_uint(c)), (colour,)),
+    ):
+        on_cpu, on_card = fn(*args), fn(*(a.cuda() for a in args))
+        pairs = zip(on_cpu, on_card) if isinstance(on_cpu, tuple) else [(on_cpu, on_card)]
+        for c, g in pairs:
+            same = torch.equal(c, g.cpu()) if c.dtype == torch.int64 else same_floats(c, g)
+            if not same:
+                raise AssertionError(f"packed layers: {name} differs between the card and the CPU")
+
+    cfg, state = em.cfg, em.state
+    rgb = cfg.semantic_layers.index("rgb")
+    arrays = state_to_numpy(state)
+    n_colour = int(np.count_nonzero(arrays["semantic"][rgb]))
+    if n_colour < 1000 or not (np.abs(arrays["semantic"][rgb]) < 2.4e-38).all():
+        raise AssertionError(f"packed layers: the colour layer holds {n_colour} coloured cells or a value that is no packed colour")
+    again = state_from_numpy(arrays, "cuda")
+    if not np.array_equal(bits(again.semantic), bits(state.semantic)) or not torch.equal(again.id_max, state.id_max):
+        raise AssertionError("packed layers: a state round trip through NumPy changed bits")
+    cpu_state = state_from_numpy(arrays, "cpu")
+    moved, moved_cpu = core.shift_map_xy(state, 5, -3, cfg), core.shift_map_xy(cpu_state, 5, -3, cfg)
+    for field in ("semantic", "sem_new", "id_max"):
+        a, b = getattr(moved, field).cpu(), getattr(moved_cpu, field)
+        if not np.array_equal(a.numpy().view(np.uint32 if a.dtype == torch.float32 else np.int64),
+                              b.numpy().view(np.uint32 if b.dtype == torch.float32 else np.int64)):
+            raise AssertionError(f"packed layers: shift_map_xy moved {field} differently on the card")
+    cpu = ElevationMap(cfg, device="cpu")
+    cpu.state = cpu_state
+    if not np.array_equal(em.get_layers(["rgb"])["rgb"].view(np.uint32), cpu.get_layers(["rgb"])["rgb"].view(np.uint32)):
+        raise AssertionError("packed layers: the colour export differs between the card and the CPU")
+    res = {"coloured_cells": n_colour, "helpers": "equal", "state_round_trip": "equal", "shift": "equal", "export": "equal"}
+    log("packed layers on the card: " + json.dumps(res))
+    return res
+
+
+def phase_semantic(cfg, kernel_regs):
+    """Both semantic maps (module docstring, phase 8). Returns the first
+    map, the results and the launches of each."""
+    from elevation_mapping_cupy_torch.ops import cuda_scatter as cs
+
+    mem_cfg = semantic_config()
+    em, mem = drive_semantic(
+        "semantic (rgb + 3 class_average)", mem_cfg, kernel_regs, mem_cloud, MEM_CHANNELS, SEMANTIC_UPDATES,
+        k1_per_update=5, packed=("rgb",), seed=7,
+    )
+    mem["packed_on_card"] = check_packed_on_card(em)
+    all_cfg = cfg.replace(semantic_layers=ALL_FUSIONS_CHANNELS, pointcloud_channel_fusions=ALL_FUSIONS_TABLE)
+    bins = MAX_CLASSES * cfg.cell_n**2
+    if cs.launch_plan(1, 1, 2 * MAIN_POINTS, bins).path != "global":
+        raise AssertionError(f"class_max's {bins} bins must take K1's global path")
+    em_all, allf = drive_semantic(
+        "semantic (all six fusions)", all_cfg, kernel_regs, all_fusions_cloud, ALL_FUSIONS_CHANNELS,
+        ALL_FUSIONS_UPDATES, k1_per_update=7, packed=(), seed=9,
+    )
+    ids = em_all.state.id_max[3:].unique().tolist()
+    if not set(ids) <= set(range(9)) or len(ids) < 8:
+        raise AssertionError(f"class_max wrote the ids {ids}, the clouds hold 1..8")
+    sem = em_all.get_layers(list(ALL_FUSIONS_CHANNELS))
+    for name in ("f_avg", "f_dir", "max_a", "max_b"):  # f_bayes stays 0: the reference's frozen posterior
+        if not np.isfinite(sem[name]).all() or np.count_nonzero(sem[name]) < 0.12 * cfg.cell_n**2:
+            raise AssertionError(f"semantic layer {name} has {np.count_nonzero(sem[name])} non-zero cells")
+    return em, mem, allf
+
+
+def phase_image(em, kernel_regs):
+    """``input_image`` on the mapped semantic state in both occlusion modes
+    (module docstring, phase 9), each against the CPU port."""
+    from elevation_mapping_cupy_torch import core
+    from elevation_mapping_cupy_torch.mapper import ElevationMap
+    from elevation_mapping_cupy_torch.state import state_from_numpy, state_to_numpy
+
+    rng = np.random.default_rng(10)
+    H, W = IMAGE_SHAPE
+    img = np.concatenate([rng.integers(0, 256, (3, H, W)), rng.random((1, H, W))]).astype(np.float32)
+    K = np.array([[400.0, 0, W / 2], [0, 400.0, H / 2], [0, 0, 1]], np.float32)
+    R = np.array([[1.0, 0, 0], [0, -1, 0], [0, 0, -1]], np.float32)
+    # the camera looks down from 1.5 m above a point 0.6 m ahead of the map's
+    # centre, a box at the edge of its view: t = -R c
+    t = -R @ (em.center + np.array([0.6, -0.2, 1.5], np.float32))
+    D = np.zeros(5, np.float32)
+    channels = ["rgb", "mask"]
+    start = state_to_numpy(em.state)
+    out = {}
+    for mode, calls in IMAGE_CALLS.items():
+        cfg = em.cfg.replace(image_occlusion_mode=mode)
+        gpu, cpu = ElevationMap(cfg, device="cuda"), ElevationMap(cfg, device="cpu")
+        gpu.state, cpu.state = state_from_numpy(start, "cuda"), state_from_numpy(start, "cpu")
+        gpu.input_image(img, channels, R, t, K, D)  # warm-up; grows the mask layer
+        gpu.state = state_from_numpy(start, "cuda")
+        gpu.cfg = cfg
+        torch.cuda.synchronize()
+        for kern in kernel_regs.values():
+            kern.launches = 0
+        lat = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gpu.input_image(img, channels, R, t, K, D)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        launches = {name: kern.launches for name, kern in kernel_regs.items()}
+        check_launches(f"image ({mode})", launches, calls, {"scatter_add_streams": 0, "exact_march": 0})
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            cpu.input_image(img, channels, R, t, K, D)
+        cpu_ms = (time.perf_counter() - t0) / calls * 1e3
+        dev = lambda em_, x: torch.as_tensor(x, device=em_.device)  # noqa: E731
+        valid = {}
+        for tag, m in (("card", gpu), ("cpu", cpu)):
+            before = state_from_numpy(start, m.device)
+            valid[tag] = core.image_correspondence(
+                before, H, W, dev(m, R), dev(m, t), dev(m, K), dev(m, D), cfg
+            )[1].cpu().numpy()
+        agree = float((valid["card"] == valid["cpu"]).mean())
+        n_valid = int(valid["cpu"].sum())
+        if agree < IMAGE_MIN_SHARE or n_valid < 0.02 * cfg.cell_n**2:
+            raise AssertionError(f"image ({mode}): valid agrees on {agree:.5f} of cells, {n_valid} valid on the CPU")
+        both = (valid["card"] & valid["cpu"])[1:-1, 1:-1][::-1, ::-1]
+        stats = _compare_layers(
+            f"image ({mode})", gpu.get_layers(channels), cpu.get_layers(channels), packed=("rgb",),
+            min_share=IMAGE_MIN_SHARE, where=both,
+        )
+        prof = profile_calls([lambda: gpu.input_image(img, channels, R, t, K, D)] * min(calls, 3))
+        ms = np.array(lat) * 1e3
+        prof["device_busy_share_of_median_latency"] = prof["device_ms_per_update"] / float(np.median(ms))
+        out[mode] = {
+            "calls": calls, "image": [4, H, W], "latency_ms_median": float(np.median(ms)),
+            "latency_ms_p90": float(np.percentile(ms, 90)), "latency_ms": ms.tolist(), "cpu_port_ms": cpu_ms,
+            "valid_cells": n_valid, "valid_agreement": agree, "cpu_compare": stats, "launches": launches,
+            "profile": prof,
+        }
+        log(f"image ({mode}): " + json.dumps(out[mode]))
+    return out
+
+
+def profile_updates(em, rng, n_updates: int = 5, pose: int = 300, make_cloud=scene_cloud,
+                    channels=("x", "y", "z")) -> dict:
     """Where one update's time goes: torch.profiler over back-to-back
     updates of MAIN_POINTS points seen from robot pose ``pose`` (clouds made
-    beforehand, no map motion): device time and device operations per
-    update, the host clock under the profiler, and the kernels that take
-    the most device time."""
+    beforehand by ``make_cloud``, no map motion): device time and device
+    operations per update, the host clock under the profiler, and the
+    kernels that take the most device time."""
+    R, t, _ = robot_pose(pose)
+    clouds = [make_cloud(rng, MAIN_POINTS, R, t) for _ in range(n_updates)]
+    return profile_calls([lambda pts=pts: em.input_pointcloud(pts, list(channels), R, t, 0.0, 0.0) for pts in clouds])
+
+
+def profile_calls(calls) -> dict:
+    """torch.profiler over the given calls, run back to back; per call (the
+    keys say "update"): device time, device operations, the host clock under
+    the profiler, and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    R, t, _ = robot_pose(pose)
-    clouds = [scene_cloud(rng, MAIN_POINTS, R, t) for _ in range(n_updates)]
+    n_updates = len(calls)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for pts in clouds:
-            em.input_pointcloud(pts, ["x", "y", "z"], R, t, 0.0, 0.0)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -725,16 +1087,24 @@ def profile_updates(em, rng, n_updates: int = 5, pose: int = 300) -> dict:
     }
 
 
-def kernels_line(cases, launches, march_cases, exact_launches, n_main: int) -> dict:
+SEMANTIC_CASES = ("features3", "features8", "colour4", "colour3", "count1", "cube_class_max")
+
+
+def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path_launches: dict) -> dict:
     """One entry per kernel. K1's numbers are those of one update's three
     launches at the main path's cloud size (error counting, fusion, cube),
-    summed and, under ``cases``, each on its own, and its launches on the
-    polar main path; K2's are those of the gated march of n_main rays (the
-    router's first choice) and its launches on the exact path. ``ms`` is the
-    call as its caller pays for it, ``device_ms`` the device's own time."""
+    summed and, under ``cases``, each on its own together with the semantic
+    fusions' shapes, and its launches on the polar main path; K2's are those
+    of the gated march of n_main rays (the router's first choice) and its
+    launches on the exact path. ``launches_by_path`` holds every driven
+    path's count, each read after a run that began with the counts at 0.
+    ``ms`` is the call as its caller pays for it, ``device_ms`` the device's
+    own time."""
     march = march_cases[(n_main, True)]
     shapes = [cases[(c, n_main)] for c in ("count", "fusion", "cube")]
+    listed = shapes + [cases[(c, n_main)] for c in SEMANTIC_CASES]
     total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
+    by_path = lambda name: {path: counts[name] for path, counts in path_launches.items()}  # noqa: E731
     return {
         "kernels": [
             {
@@ -745,6 +1115,7 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int) -> d
                 "function": "_kernel",
                 "checked": True,
                 "launches": launches["scatter_add_streams"],
+                "launches_by_path": by_path("scatter_add_streams"),
                 "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
                 "ms": total("kernel_ms"),
                 "device_ms": total("device_ms"),
@@ -753,9 +1124,10 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int) -> d
                 "bound_by": "bytes",
                 "library_ms": total("library_ms"),
                 "cases": [
-                    {"case": s["case"], "path": s["path"], "ms": s["kernel_ms"], "device_ms": s["device_ms"],
-                     "bound_ms": s["bound_ms"], "plain_ms": s["plain_ms"], "library_ms": s["library_ms"]}
-                    for s in shapes
+                    {"case": s["case"], "path": s["path"], "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
+                     "device_ms": s["device_ms"], "bound_ms": s["bound_ms"], "bound_by": "bytes",
+                     "plain_ms": s["plain_ms"], "library_ms": s["library_ms"]}
+                    for s in listed
                 ],
             },
             {
@@ -766,6 +1138,7 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int) -> d
                 "function": "k_take, k_take2, k_scat, k_smin, k_sort, k_taa, k_taa2, k_take2d",
                 "checked": True,
                 "launches": exact_launches["exact_march"],
+                "launches_by_path": by_path("exact_march"),
                 "max_abs_err": max(c["max_abs_err"] for c in march_cases.values()),
                 "ms": march["kernel_ms"],
                 "device_ms": march["device_ms"],
@@ -798,12 +1171,20 @@ def main(argv=None) -> int:
     march_cases, fresh_cases = timed("march", phase_march, cfg, mapped_state)
     exact_res, exact_launches = timed("exact", phase_exact, cfg, regs)
     timed("replay", phase_replay, cfg, regs)
+    sem_map, mem_res, allf_res = timed("semantic", phase_semantic, cfg, regs)
+    image_res = timed("image", phase_image, sem_map, regs)
     log(f"total: {time.perf_counter() - t0:.1f} s")
-    line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS)
+    path_launches = {
+        "polar": launches, "exact": exact_launches, "semantic_mem": mem_res["launches"],
+        "semantic_all_fusions": allf_res["launches"],
+        "image_shadow": image_res["shadow"]["launches"], "image_bresenham": image_res["bresenham"]["launches"],
+    }
+    line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS, path_launches)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({
                 "card": smi, "kernels_line": line, "polar": main_res, "exact": exact_res,
+                "semantic_mem": mem_res, "semantic_all_fusions": allf_res, "image": image_res,
                 "scatter_cases": list(cases.values()),
                 "march_cases": list(march_cases.values()) + list(fresh_cases.values()),
             }, f, indent=1)

@@ -1,30 +1,36 @@
 """Functional core: one geometric map update and the map maintenance steps.
 
-PyTorch counterpart of ``elevation_mapping_cupy_tpu/core.py`` without the
-semantic and image paths (later slices). Every function takes a
-``MapState`` and returns a new one; the input state's tensors are not
-written. The state's device decides where the work runs: on a CUDA state
-the scatters launch kernel K1 and the exact cleanup kernel K2, on a CPU
-state they take their plain versions.
+PyTorch counterpart of ``elevation_mapping_cupy_tpu/core.py``: the
+geometric update, the same update with semantic channels, the image path
+and the maintenance steps. Every function takes a ``MapState`` and returns
+a new one; the input state's tensors are not written. The state's device
+decides where the work runs: on a CUDA state the scatters launch kernel K1
+and the exact cleanup kernel K2, on a CPU state they take their plain
+versions.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 
 from .config import MapConfig
 from .nn.traversability import TravFilter
+from .ops import image as img_ops
 from .ops import pointcloud as pc
 from .ops import raycast as rc
 from .ops import stencil
 from .ops.geometry import associate_points, true_div
+from .semantic.update import reset_sem_new, resolve_channels, update_semantic_pointcloud
 from .state import MapState
 
 __all__ = [
     "update_pointcloud",
     "update_pointcloud_aux",
+    "update_pointcloud_semantic",
+    "image_correspondence",
+    "input_image",
     "move_to",
     "move",
     "shift_map_xy",
@@ -83,6 +89,26 @@ def update_pointcloud_aux(
     return _update_impl(state, points, pad_mask, R, t, position_noise, orientation_noise, weights, cfg)
 
 
+@torch.no_grad()
+def update_pointcloud_semantic(
+    state: MapState,
+    points_all: torch.Tensor,   # (N, 3 + C) xyz + semantic channel columns
+    pad_mask: torch.Tensor,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    position_noise: Scalar,
+    orientation_noise: Scalar,
+    weights: TravFilter,
+    cfg: MapConfig,
+    channels: Sequence[str],    # semantic channel names (columns 3..)
+) -> MapState:
+    """Geometric update + MEM semantic fusion sharing one association pass
+    (reference: update_map_with_kernel + SemanticMap.update_layers_pointcloud)."""
+    return _update_impl(
+        state, points_all, pad_mask, R, t, position_noise, orientation_noise, weights, cfg, tuple(channels)
+    )[0]
+
+
 def _update_impl(
     state: MapState,
     points: torch.Tensor,
@@ -93,6 +119,7 @@ def _update_impl(
     orientation_noise: Scalar,
     weights: TravFilter,
     cfg: MapConfig,
+    channels: Tuple[str, ...] = (),
 ) -> Tuple[MapState, Dict[str, torch.Tensor]]:
     dev, dt = state.layers.device, state.layers.dtype
     position_noise = torch.as_tensor(position_noise, dtype=dt, device=dev)
@@ -121,6 +148,19 @@ def _update_impl(
     )
     layers = pc.average_map(layers, newmap, cfg)
 
+    semantic, sem_new, id_max = state.semantic, state.sem_new, state.id_max
+    if channels:
+        semantic, sem_new, id_max = update_semantic_pointcloud(
+            semantic,
+            sem_new,
+            id_max,
+            assoc,
+            points[:, 3 : 3 + len(channels)],
+            channels,
+            newmap[2],
+            cfg,
+        )
+
     if cfg.enable_overlap_clearance:
         layers = pc.clear_overlap(layers, t_c, cfg)
     trav_input, _ = stencil.dilation_fill(layers[5], layers[2] + layers[6], cfg.dilation_size)
@@ -129,10 +169,85 @@ def _update_impl(
     out = state._replace(
         layers=layers,
         normal=normal,
+        semantic=semantic,
+        sem_new=sem_new,
+        id_max=id_max,
         mean_error=mean_error,
         additive_mean_error=additive,
     )
     return out, ray_aux
+
+
+@torch.no_grad()
+def image_correspondence(
+    state: MapState,
+    image_height: int,
+    image_width: int,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    K: torch.Tensor,
+    D: torch.Tensor,
+    cfg: MapConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-cell pixel coordinates and visibility of a camera's image,
+    (uv (2, H, W), valid (H, W) bool): P = K[R|t], the camera cell, then
+    ``ops.image.image_to_map_correspondence``."""
+    # P = K @ [R|t] and -R^T t as explicit sums of products: float32
+    # whatever the matmul precision flags say
+    Rt = torch.cat([R, t[:, None]], dim=1)
+    P = (K[:, :, None] * Rt[None, :, :]).sum(dim=1)
+    t_cam_map = -(R * t[:, None]).sum(dim=0) - state.center
+    # uint32 truncation of cell coordinates (elevation_mapping.py:532-533)
+    cam_xy_cell = torch.floor(cfg.cell_n / 2 + true_div(t_cam_map[:2], cfg.resolution)).to(torch.int64)
+    return img_ops.image_to_map_correspondence(
+        state.layers, state.center, cam_xy_cell, t_cam_map[2], P, K, D, float(image_height), float(image_width), cfg
+    )
+
+
+@torch.no_grad()
+def input_image(
+    state: MapState,
+    image: torch.Tensor,        # (C_img, H_i, W_i) channel-stacked image
+    R: torch.Tensor,            # (3, 3) camera optical rotation (world->cam)
+    t: torch.Tensor,            # (3,)  camera optical translation
+    K: torch.Tensor,            # (3, 3) intrinsics
+    D: torch.Tensor,            # (5,)  radtan distortion (pre-normalized)
+    cfg: MapConfig,
+    channels: Sequence[str],    # semantic channel names
+) -> MapState:
+    """Fuse an image into semantic layers (elevation_mapping.py:468-562):
+    the per-cell uv correspondence with its occlusion test
+    (``cfg.image_occlusion_mode``), then the per-channel image fusions.
+    """
+    image_width = float(image.shape[-1])
+    uv, valid = image_correspondence(state, image.shape[-2], image.shape[-1], R, t, K, D, cfg)
+
+    sem_new = reset_sem_new(state.sem_new, cfg)
+    # Channel -> image-plane mapping: a color channel consumes THREE planes
+    # (the C++ node validates "rgb counts for 3 layers",
+    # elevation_mapping_ros.cpp:428-441). The reference Python then indexes
+    # fusions by channel POSITION (image[j], image_exponential.py:69), which
+    # silently reads the wrong plane whenever a color channel precedes a
+    # mono one — here a plane cursor advances by each channel's true width.
+    plane_of = {}
+    cursor = 0
+    for col, ch in enumerate(channels):
+        plane_of[col] = cursor
+        fus = cfg.fusion_for_channel(ch, "image")
+        cursor += 3 if (fus == "color" or ch == "rgb") else 1
+
+    semantic = state.semantic.clone()
+    for col, lay, fusion in resolve_channels(channels, cfg, "image"):
+        off = plane_of[col]
+        if fusion == "color":
+            semantic[lay] = img_ops.image_fuse_color(semantic[lay], image[off : off + 3], uv, valid, image_width)
+        elif fusion == "exponential":
+            semantic[lay] = img_ops.image_fuse_exponential(
+                semantic[lay], image[off], uv, valid, image_width, cfg.image_exponential_alpha
+            )
+        elif fusion == "average":
+            semantic[lay] = img_ops.image_fuse_replace(semantic[lay], image[off], uv, valid, image_width)
+    return state._replace(semantic=semantic, sem_new=sem_new)
 
 
 def _apply_traversability(layers: torch.Tensor, trav_input: torch.Tensor, weights: TravFilter) -> torch.Tensor:

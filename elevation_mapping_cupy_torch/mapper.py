@@ -1,10 +1,15 @@
 """Stateful elevation map: the reference ElevationMap's API on PyTorch.
 
-PyTorch counterpart of ``elevation_mapping_cupy_tpu/mapper.py`` for the
-geometric path: x/y/z point clouds, map motion, maintenance timers, the core
-layer and normal exports, and npz checkpoints in the JAX package's schema
-(a checkpoint saved by either package loads in the other). Everything a
-caller reads back is host NumPy.
+PyTorch counterpart of ``elevation_mapping_cupy_tpu/mapper.py``: point
+clouds with or without semantic channels, images, map motion, maintenance
+timers, the core, normal and semantic layer exports, and npz checkpoints in
+the JAX package's schema (a checkpoint saved by either package loads in the
+other). Plugin layers, polygon queries and ``initialize_map`` are not ported
+yet. Everything a caller reads back is host NumPy.
+
+Colour and class-max layers hold integers packed into the bits of a float32
+(``semantic/fusions.py``): they are exported, shifted and checkpointed as
+they are, bit for bit, and nothing here does arithmetic on them.
 
 The map lives on a CUDA device unless the caller passes ``device="cpu"``.
 """
@@ -78,6 +83,8 @@ def _export(state: MapState, cfg: MapConfig, name: str, flip: bool) -> torch.Ten
             m = torch.where(valid, L[6], nan)[1:-1, 1:-1]
     elif name in _NORMAL_LAYERS:
         m = state.normal[_NORMAL_LAYERS.index(name)][1:-1, 1:-1]
+    elif name in cfg.semantic_layers:
+        m = state.semantic[cfg.semantic_layers.index(name)][1:-1, 1:-1]
     else:
         raise KeyError(name)
     if flip:
@@ -139,6 +146,21 @@ class ElevationMap:
         mask[:n] = True
         return torch.from_numpy(out).to(self.device), torch.from_numpy(mask).to(self.device)
 
+    def _grow_semantic_layers(self, new_channels: Sequence[str]) -> None:
+        """Dynamic add_layer equivalent (semantic_map.py:80-97): grow the
+        config and zero-pad the semantic state tensors."""
+        added = [c for c in new_channels if c not in self.cfg.semantic_layers]
+        if not added:
+            return
+        self.cfg = self.cfg.replace(semantic_layers=tuple(self.cfg.semantic_layers) + tuple(added))
+        st = self.state
+
+        def grown(x: torch.Tensor) -> torch.Tensor:
+            pad = torch.zeros((len(added),) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+            return torch.cat([x, pad])
+
+        self.state = st._replace(semantic=grown(st.semantic), sem_new=grown(st.sem_new), id_max=grown(st.id_max))
+
     # -------------------------------------------------------------- mutation
     def clear(self) -> None:
         self.state = core.clear(self.state, self.cfg)
@@ -161,25 +183,27 @@ class ElevationMap:
         position_noise: float,
         orientation_noise: float,
     ) -> None:
-        """channels: names of all columns; only x, y, z are taken so far
-        (semantic channels come with a later slice of the port). With
-        raycast_exact_impl="auto" on an exact-march config, the router picks
-        the gated or the flat march for this update."""
+        """channels: names of all columns; the first three must be x, y, z.
+        Further columns are semantic channels: those that resolve to a
+        fusion get a layer (grown on first sight) and are fused in the same
+        update. For an x/y/z cloud on an exact-march config with
+        raycast_exact_impl="auto", the router picks the gated or the flat
+        march for this update."""
         raw_points = np.asarray(raw_points, np.float32)
         if len(channels) != raw_points.shape[1]:
             raise ValueError(
                 f"channels names every column: got {len(channels)} names "
                 f"for {raw_points.shape[1]} columns"
             )
-        if len(channels) > 3:
-            raise NotImplementedError(
-                f"semantic channels {tuple(channels[3:])} are not ported yet; "
-                "pass x, y, z only"
-            )
         raw_points = raw_points[~np.isnan(raw_points[:, :3]).any(axis=1)]
+        additional = tuple(channels[3:])
+        self._grow_semantic_layers([c for c in additional if self.cfg.fusion_for_channel(c, "pointcloud")])
         pts, mask = self._pad_points(raw_points)
         args = (self.state, pts, mask, self._tensor(R), self._tensor(t),
                 float(position_noise), float(orientation_noise), self.weights)
+        if additional:
+            self.state = core.update_pointcloud_semantic(*args, self.cfg, additional)
+            return
         impl = self._exact_router.route()
         if impl is None:
             self.state = core.update_pointcloud(*args, self.cfg)
@@ -211,6 +235,51 @@ class ElevationMap:
             torch.cuda.synchronize(self.device)
         return warmed
 
+    def input_image(
+        self,
+        image: Union[np.ndarray, Sequence[np.ndarray]],
+        channels: Sequence[str],
+        R: np.ndarray,
+        t: np.ndarray,
+        K: np.ndarray,
+        D: np.ndarray,
+        distortion_model: str = "radtan",
+        image_height: Optional[int] = None,
+        image_width: Optional[int] = None,
+    ) -> None:
+        """Fuse an image (a (C, H, W) array, a list of (H, W) planes, or one
+        mono (H, W) plane) into the semantic layers named by ``channels``; a
+        colour channel takes three planes. ``image_height`` and
+        ``image_width`` belong to the reference's signature; the image's own
+        shape is what counts."""
+        if isinstance(image, (list, tuple)):
+            img = np.stack([np.asarray(c, np.float32) for c in image], axis=0)
+        else:
+            img = np.asarray(image, np.float32)
+        if img.ndim == 2:
+            img = img[None]
+        D = np.asarray(D, np.float32).reshape(-1)
+        if len(D) < 4:
+            D = np.zeros(5, np.float32)
+        elif len(D) == 4:
+            D = np.concatenate([D, np.zeros(1, np.float32)])
+        else:
+            D = D[:5]
+        if distortion_model != "radtan":
+            D = D * 0  # other models unimplemented in the reference too
+        chans = tuple(channels)
+        self._grow_semantic_layers([c for c in chans if self.cfg.fusion_for_channel(c, "image")])
+        self.state = core.input_image(
+            self.state,
+            self._tensor(img),
+            self._tensor(R),
+            self._tensor(t),
+            self._tensor(np.asarray(K, np.float32).reshape(3, 3)),
+            self._tensor(D),
+            self.cfg,
+            chans,
+        )
+
     def update_variance(self) -> None:
         self.state = core.update_variance(self.state, self.cfg)
 
@@ -230,7 +299,7 @@ class ElevationMap:
 
     # --------------------------------------------------------------- exports
     def _exportable(self, name: str) -> bool:
-        return name in self.layer_names or name in _NORMAL_LAYERS
+        return name in self.layer_names or name in _NORMAL_LAYERS or name in self.cfg.semantic_layers
 
     def exists_layer(self, name: str) -> bool:
         return self._exportable(name)
@@ -256,9 +325,6 @@ class ElevationMap:
         return {nm: stacked[i] for i, nm in enumerate(names)}
 
     # ------------------------------------------------------ not ported yet
-    def input_image(self, *args, **kwargs):
-        raise NotImplementedError("input_image comes with the image slice of the port")
-
     def get_polygon_traversability(self, *args, **kwargs):
         raise NotImplementedError("polygon queries come with a later slice of the port")
 
@@ -267,6 +333,9 @@ class ElevationMap:
 
     def initialize_map(self, *args, **kwargs):
         raise NotImplementedError("initialize_map comes with a later slice of the port")
+
+    def get_layer(self, *args, **kwargs):
+        raise NotImplementedError("get_layer comes with the plugin slice of the port")
 
     # ------------------------------------------------------------ checkpoint
     def save_checkpoint(self, path: str) -> None:
@@ -283,8 +352,6 @@ class ElevationMap:
             path = path + ".npz"
         with np.load(path, allow_pickle=True) as z:
             sem_layers = tuple(z["semantic_layers"].tolist())
-            if sem_layers:
-                raise NotImplementedError(
-                    f"checkpoint holds semantic layers {sem_layers}; the semantic slice is not ported yet"
-                )
+            if sem_layers != self.cfg.semantic_layers:
+                self.cfg = self.cfg.replace(semantic_layers=sem_layers)
             self.state = state_from_numpy(z, self.device)

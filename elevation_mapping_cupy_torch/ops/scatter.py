@@ -21,6 +21,7 @@ __all__ = [
     "scatter_add_multi",
     "scatter_add_streams_2d",
     "scatter_min",
+    "scatter_max",
 ]
 
 
@@ -74,3 +75,13 @@ def scatter_min(
     safe_idx, safe_val = _masked(idx, values, mask, init)
     out = torch.full((n_cells,), init, dtype=values.dtype, device=values.device)
     return out.scatter_reduce(0, safe_idx.to(torch.int64), safe_val, reduce="amin", include_self=True)
+
+
+def scatter_max(
+    n_cells: int, idx: torch.Tensor, values: torch.Tensor, mask: torch.Tensor, init: float
+) -> torch.Tensor:
+    """Per-cell maximum; like :func:`scatter_min`, an XLA scatter in the JAX
+    package (``ops/scatter.py:167-169``) and ``scatter_reduce`` here."""
+    safe_idx, safe_val = _masked(idx, values, mask, init)
+    out = torch.full((n_cells,), init, dtype=values.dtype, device=values.device)
+    return out.scatter_reduce(0, safe_idx.to(torch.int64), safe_val, reduce="amax", include_self=True)

@@ -176,11 +176,17 @@ def test_mapper_refuses_what_is_not_ported():
     pts = np.zeros((10, 4), np.float32)
     with pytest.raises(ValueError):
         tem.input_pointcloud(pts, ["x", "y", "z"], np.eye(3), np.zeros(3), 0, 0)
-    with pytest.raises(NotImplementedError):
-        tem.input_pointcloud(pts, ["x", "y", "z", "rgb"], np.eye(3), np.zeros(3), 0, 0)
-    for call in (tem.input_image, tem.get_polygon_traversability, tem.initialize_map):
+    # semantic channels and images are ported: both run and grow their layers
+    tem.input_pointcloud(pts, ["x", "y", "z", "rgb"], np.eye(3), np.zeros(3), 0, 0)
+    assert tem.semantic_layer_names == ["rgb"] and tem.exists_layer("rgb")
+    K = np.array([[20, 0, 32], [0, 20, 24], [0, 0, 1]], np.float32)
+    tem.input_image(np.zeros((48, 64), np.float32), ["mask"], np.diag([1.0, -1.0, -1.0]), np.array([0, 0, 1.0]), K, np.zeros(5))
+    assert tem.semantic_layer_names == ["rgb", "mask"] and tem.state.semantic.shape[0] == 2
+    # polygon queries, initialize_map and plugin layers wait for the plugin slice
+    for call in (tem.get_polygon_traversability, tem.get_untraversable_polygon, tem.initialize_map, tem.get_layer):
         with pytest.raises(NotImplementedError):
             call()
+    assert not tem.exists_layer("min_filter")
     # the exact march is ported: an exact-mode map takes a cloud
     exact = ElevationMap(MapConfig(**dict(CFG_KW, raycast_mode="exact")), device="cpu")
     R, t, _ = chip_smoke.robot_pose(0)
@@ -212,14 +218,38 @@ def _imported_modules(path):
             yield node.module
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def _port_files():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    files.append(os.path.join(REPO, "chip_smoke.py"))
-    assert len(files) >= 12
+    return files + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _forbidden_imports(path):
+    return [m for m in _imported_modules(path) if m.split(".")[0] in ("jax", "jaxlib", "elevation_mapping_cupy_tpu")]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert len(files) >= 16
+    rel = {os.path.relpath(p, PKG) for p in files}
+    for sub in ("semantic/__init__.py", "semantic/fusions.py", "semantic/update.py", "ops/image.py"):
+        assert sub.replace("/", os.sep) in rel, f"the scan does not reach {sub}"
     for path in files:
-        for mod in _imported_modules(path):
-            root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "elevation_mapping_cupy_tpu"), f"{path} imports {mod}"
+        assert not _forbidden_imports(path), f"{path} imports {_forbidden_imports(path)}"
+
+
+@pytest.mark.parametrize("line", [
+    "import jax", "import jax.numpy as jnp", "from jax import lax", "import jaxlib",
+    "from elevation_mapping_cupy_tpu.semantic import fusions",
+    "def f():\n    from elevation_mapping_cupy_tpu import config",
+])
+def test_import_scan_catches_a_stray_import(tmp_path, line):
+    """The scan's own check: a module of the semantic sub-package with one
+    such line in it (at top level or inside a function) is caught."""
+    src = open(os.path.join(PKG, "semantic", "update.py")).read()
+    assert not _forbidden_imports(os.path.join(PKG, "semantic", "update.py"))
+    path = tmp_path / "update.py"
+    path.write_text(src + "\n" + line + "\n")
+    assert _forbidden_imports(str(path))
 
 
 def test_weights_file_is_a_byte_copy():
@@ -236,3 +266,23 @@ def test_chip_smoke_config_is_the_deployed_yaml():
     assert dataclasses.asdict(lit) == dataclasses.asdict(jload_config(yaml_path))
     assert lit.cell_n == 202 and lit.n_ray_steps == 353
     assert lit.azimuth_bins * (lit.n_ray_steps + 2) * lit.raycast_elevation_bins == 512 * 355 * 128
+
+
+def test_chip_smoke_semantic_config_is_the_mem_yaml():
+    """chip_smoke's semantic map: the deployed values with the layers, the
+    fusion tables and the weights of ``configs/semantic_mem.yaml``."""
+    mem = load_config(os.path.join(REPO, "configs", "semantic_mem.yaml"))
+    lit = chip_smoke.semantic_config()
+    keys = ("semantic_layers", "pointcloud_channel_fusions", "image_channel_fusions", "average_weight",
+            "image_exponential_alpha", "resolution", "map_length")
+    for key in keys:
+        a, b = getattr(lit, key), getattr(mem, key)
+        if key.endswith("_fusions"):  # the loader sorts the table; the lookup does not depend on its order
+            a, b = dict(a), dict(b)
+        assert a == b, key
+    assert lit.replace(**{k: getattr(chip_smoke.deployed_config(), k) for k in keys[:5]}) == chip_smoke.deployed_config()
+    assert tuple(lit.semantic_layers) == chip_smoke.MEM_CHANNELS
+    assert [lit.fusion_for_channel(c) for c in chip_smoke.MEM_CHANNELS] == ["color"] + ["class_average"] * 3
+    allf = lit.replace(pointcloud_channel_fusions=chip_smoke.ALL_FUSIONS_TABLE)
+    assert [allf.fusion_for_channel(c) for c in chip_smoke.ALL_FUSIONS_CHANNELS] == [
+        "average", "bayesian_inference", "class_bayesian", "class_max", "class_max"]

@@ -1,4 +1,5 @@
-"""The PyTorch port on a CUDA card: kernels K1 and K2 and the updates through them.
+"""The PyTorch port on a CUDA card: kernels K1 and K2 and the updates through
+them, the semantic fusions and the image path.
 
 Every test here needs the card and is marked ``cuda``; without one it
 skips. The file imports no JAX, so it also runs where JAX is not
@@ -291,3 +292,145 @@ def test_exact_update_on_card_matches_cpu(card):
     got, want = gpu.get_layers(names), cpu.get_layers(names)
     for name in names:
         np.testing.assert_allclose(got[name], want[name], atol=1e-4, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# semantic layers and the image path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "label, k, pairs, n_cells, integers",
+    [
+        ("features K=3", 3, 1, 202 * 202, False),
+        ("features K=8", 8, 1, 202 * 202, False),
+        ("colour count+rgb K=4", 4, 1, 202 * 202, True),
+        ("colour rgb K=3", 3, 1, 202 * 202, True),
+        ("colour count K=1", 1, 1, 202 * 202, True),
+        ("class_max K=1 over 32 n^2 bins", 1, 2, 32 * 202 * 202, False),
+    ],
+)
+def test_kernel_at_the_semantic_shapes(card, label, k, pairs, n_cells, integers):
+    """K1 against its plain version at the shapes the semantic fusions give
+    it at the deployed map and 131072 points: integer streams (0-255) bit
+    for bit, value streams within 2e-4 relative to max(1, |sum|)."""
+    rng = np.random.default_rng(20)
+    n = 131072 * pairs
+    want_path = "global" if n_cells > 58112 else "private"
+    assert cuda_scatter.launch_plan(1, k, n, n_cells).path == want_path
+    idx = torch.from_numpy(chip_smoke._cell_indices(rng, 1, n, 202 * 202)).to(card)
+    if pairs > 1:
+        idx = idx + 202 * 202 * torch.from_numpy(rng.integers(0, 9, (1, n)).astype(np.int32)).to(card)
+    mask = torch.from_numpy(rng.random((1, n)) > 0.15).to(card)
+    vals = rng.integers(0, 256, (1, k, n)) if integers else rng.normal(0.5, 0.3, (1, k, n))
+    vals = torch.from_numpy(vals.astype(np.float32)).to(card)
+    before = cuda_scatter.KERNEL.launches
+    got = cuda_scatter.scatter_add_streams(idx, mask, vals, n_cells)
+    torch.cuda.synchronize()
+    assert cuda_scatter.KERNEL.launches == before + 1
+    want = cuda_scatter.scatter_add_streams_reference(idx, mask, vals, n_cells)
+    if integers:
+        assert float(want.max()) < 2**24 and torch.equal(got, want), label
+    else:
+        assert float(((got - want).abs() / want.abs().clamp(min=1.0)).max()) <= 2e-4, label
+
+
+def _bits(x: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(x.detach().cpu().numpy()).view(np.uint32)
+
+
+def test_packing_helpers_on_card_equal_cpu(card):
+    """decode_max / encode_max / the rgb helpers give the same bits on the
+    card as on the CPU, for every float16 pattern and ids up to 0xFFFF."""
+    from elevation_mapping_cupy_torch.semantic import fusions as F
+
+    rng = np.random.default_rng(21)
+    half = np.arange(1 << 16, dtype=np.uint32)
+    mer = torch.from_numpy(((rng.integers(0, 1 << 16, 1 << 16).astype(np.uint32) << 16) | half).view(np.float32))
+    p_cpu, c_cpu = F.decode_max(mer)
+    p_gpu, c_gpu = F.decode_max(mer.to(card))
+    # a NaN half decodes to a NaN on both; the card's conversion does not keep its payload
+    nan = torch.isnan(p_cpu).numpy()
+    assert np.array_equal(nan, torch.isnan(p_gpu).cpu().numpy()) and nan.sum() == 2046
+    assert np.array_equal(_bits(p_cpu)[~nan], _bits(p_gpu)[~nan]) and torch.equal(c_cpu, c_gpu.cpu())
+    prob = torch.from_numpy(np.concatenate([rng.uniform(-70000, 70000, 20000), 10.0 ** rng.uniform(-9, 5, 20000)]).astype(np.float32))
+    cls = torch.from_numpy(rng.integers(0, 1 << 16, prob.shape[0]))
+    assert np.array_equal(_bits(F.encode_max(prob, cls)), _bits(F.encode_max(prob.to(card), cls.to(card))))
+    colour = torch.from_numpy(chip_smoke.pack_rgb(rng.integers(0, 256, (50000, 3))))
+    rgb = F.rgb_float_to_uint(colour.to(card))
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(F.rgb_float_to_uint(colour), rgb))
+    assert np.array_equal(_bits(F.uint_to_rgb_float(*rgb)), _bits(colour))
+    # the 32 smallest distinct ids in unsigned order
+    cand = torch.from_numpy(rng.choice(np.array([0, 7, 9, 0x80000001, 0xFFFFFFFE, 70000]), 5000))
+    assert F._smallest_unique(cand.to(card), 4).tolist() == [0, 7, 9, 70000]
+    assert F._smallest_unique(cand.to(card), 8).tolist() == [0, 7, 9, 70000, 0x80000001, 0xFFFFFFFE] + [0xFFFFFFFF] * 2
+
+
+SEMANTIC_TABLE = (
+    ("rgb", "color"), ("f_avg", "average"), ("f_bayes", "bayesian_inference"), ("f_dir", "class_bayesian"),
+    ("max_.*", "class_max"), ("default", "class_average"),
+)
+SEMANTIC_CHANNELS = ["rgb", "grass", "f_avg", "f_bayes", "f_dir", "max_a", "max_b"]
+
+
+def test_semantic_update_on_card_matches_cpu(card):
+    """Two updates with all six fusions on the card and on the CPU from the
+    same clouds: 3 + 6 K1 launches an update (one per fusion: class_max's
+    two layers share one), float layers within 1e-4, the packed colour layer
+    and the class ids bit for bit."""
+    cfg = MapConfig(**SMALL_KW, raycast_mode="polar", pointcloud_channel_fusions=SEMANTIC_TABLE)
+    gpu, cpu = ElevationMap(cfg), ElevationMap(cfg, device="cpu")
+    rng = np.random.default_rng(22)
+    before = cuda_scatter.KERNEL.launches
+    for k in range(2):
+        R, t, pos = chip_smoke.robot_pose(4 * k)
+        n = 6000
+        cloud = np.concatenate([
+            chip_smoke.scene_cloud(rng, n, R, t, r_max=2.5),
+            chip_smoke.pack_rgb(rng.integers(0, 256, (n, 3)))[:, None],
+            rng.uniform(-1, 1, (n, 4)).astype(np.float32),
+            chip_smoke.pack_class(rng.uniform(0.2, 1, (n, 2)).astype(np.float32), rng.integers(1, 41, (n, 2))),
+        ], axis=1)
+        for em in (gpu, cpu):
+            em.move_to(pos, R)
+            em.input_pointcloud(cloud, ["x", "y", "z"] + SEMANTIC_CHANNELS, R, t, 0.0, 0.0)
+    assert cuda_scatter.KERNEL.launches == before + 2 * 9
+    assert gpu.cfg.semantic_layers == cpu.cfg.semantic_layers == tuple(SEMANTIC_CHANNELS)
+    got, want = gpu.get_layers(SEMANTIC_CHANNELS + ["elevation"]), cpu.get_layers(SEMANTIC_CHANNELS + ["elevation"])
+    assert np.array_equal(got["rgb"].view(np.uint32), want["rgb"].view(np.uint32))
+    assert np.count_nonzero(want["rgb"]) > 300
+    for name in SEMANTIC_CHANNELS[1:] + ["elevation"]:
+        np.testing.assert_allclose(got[name], want[name], atol=1e-4, err_msg=name)
+    ids_gpu, ids_cpu = gpu.state.id_max.cpu(), cpu.state.id_max
+    assert float((ids_gpu == ids_cpu).float().mean()) >= 0.999  # a tie between two classes' sums may fall either way
+    assert int(ids_cpu.max()) >= 30  # 40 ids in the clouds: the 32 smallest were kept
+    torch.testing.assert_close(gpu.state.sem_new.cpu(), cpu.state.sem_new, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("mode", ["shadow", "bresenham"])
+def test_input_image_on_card_matches_cpu(card, mode):
+    """One image onto a mapped state, on the card and on the CPU: neither
+    kernel is launched; valid agrees on 99.5 % of cells and the fused
+    layers on the cells valid in both."""
+    cfg = MapConfig(**SMALL_KW, raycast_mode="polar", image_occlusion_mode=mode)
+    gpu, cpu = ElevationMap(cfg), ElevationMap(cfg, device="cpu")
+    rng = np.random.default_rng(23)
+    R, t, pos = chip_smoke.robot_pose(0)
+    cloud = chip_smoke.scene_cloud(rng, 8000, R, t, r_max=2.5)
+    img = np.concatenate([rng.integers(0, 256, (3, 48, 64)), rng.random((1, 48, 64))]).astype(np.float32)
+    K = np.array([[20, 0, 32], [0, 20, 24], [0, 0, 1]], np.float32)
+    Rc = np.diag([1.0, -1.0, -1.0]).astype(np.float32)
+    tc = np.array([0.1, 0.05, 1.3], np.float32)
+    D = np.array([0.01, -0.005, 0.001, 0.0005, 0.0], np.float32)
+    before = (cuda_scatter.KERNEL.launches, cuda_march.KERNEL.launches)
+    valid = {}
+    for em in (gpu, cpu):
+        em.input_pointcloud(cloud, ["x", "y", "z"], R, t, 0.0, 0.0)
+        args = [torch.as_tensor(a, device=em.device) for a in (Rc, tc, K, D)]
+        valid[em.device.type] = core.image_correspondence(em.state, 48, 64, *args, cfg)[1].cpu().numpy()
+        em.input_image(img, ["rgb", "mask"], Rc, tc, K, D)
+    assert (cuda_scatter.KERNEL.launches, cuda_march.KERNEL.launches) == (before[0] + 3, before[1])
+    assert (valid["cuda"] == valid["cpu"]).mean() >= 0.995 and valid["cpu"].sum() > 300
+    both = (valid["cuda"] & valid["cpu"])[1:-1, 1:-1][::-1, ::-1]
+    got, want = gpu.get_layers(["rgb", "mask"]), cpu.get_layers(["rgb", "mask"])
+    assert (got["rgb"].view(np.uint32) == want["rgb"].view(np.uint32))[both].mean() >= 0.995
+    assert (np.abs(got["mask"] - want["mask"]) <= 1e-4)[both].mean() >= 0.995

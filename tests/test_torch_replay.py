@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from elevation_mapping_cupy_tpu import MapConfig as JaxConfig
 from elevation_mapping_cupy_tpu import replay as jax_cli
 from elevation_mapping_cupy_tpu.runtime.replay import replay as jax_replay
@@ -69,6 +70,34 @@ def test_replay_matches_jax_replay(log_path):
     assert report["parity_ok"], report
     assert report["n_frames"] == 3
     assert all(l["min_finite_iou"] == 1.0 for l in report["layers"].values())
+
+
+def test_replay_of_a_log_with_semantic_columns_matches_jax(tmp_path):
+    """A 3-frame log with an rgb and one class channel: the frame's channel
+    names reach input_pointcloud, the layers are grown on the first frame,
+    and every snapshot matches the JAX replay (the packed colour layer bit
+    for bit)."""
+    rng = np.random.default_rng(77)
+    w = LogWriter(["x", "y", "z", "rgb", "grass"])
+    for i in range(3):
+        pts = rng.uniform(-0.9, 0.9, (500, 3)).astype(np.float32)
+        pts[:, 2] = rng.uniform(-0.1, 0.2, 500)
+        packed = chip_smoke.pack_rgb(rng.integers(0, 256, (500, 3)))
+        cloud = np.concatenate([pts, packed[:, None], rng.uniform(0, 1, (500, 1)).astype(np.float32)], 1)
+        w.add(cloud, np.eye(3), np.array([0, 0, 0.5]), position=np.array([0.11 * i, 0, 0]), stamp=0.1 * i)
+    path = str(tmp_path / "semantic_log.npz")
+    w.save(path)
+    layers = LAYERS + ("rgb", "grass")
+    got = replay(path, MapConfig(**CFG_KW), snapshot_layers=layers, raycast_mode="exact", device="cpu")
+    want = jax_replay(path, JaxConfig(**CFG_KW), snapshot_layers=layers, raycast_mode="exact")
+    assert len(got) == len(want) == 3
+    report = cli.diff_snapshots(got, want, LAYERS + ("grass",), 2e-4)
+    assert report["parity_ok"], report
+    for g, j in zip(got, want):
+        np.testing.assert_array_equal(
+            np.ascontiguousarray(g["rgb"]).view(np.uint32), np.ascontiguousarray(j["rgb"], np.float32).view(np.uint32)
+        )
+    assert np.count_nonzero(got[-1]["rgb"]) > 100 and np.count_nonzero(got[-1]["grass"]) > 100
 
 
 def test_replay_refuses_mode_with_mapper(log_path):
