@@ -63,6 +63,23 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              CPU port (valid on 99.5 % of cells, fused layers on the cells
              valid in both); latency and device time of each mode. The image
              path launches neither kernel.
+10. plugins - the first semantic map with ``configs/plugin_config.yaml``'s
+             eight plugins (a literal: the card's machine has no PyYAML)
+             plus semantic_filter and features_pca over its class layers:
+             2 more updates (5 K1 launches each), then every plugin layer
+             through ``get_map_with_name_ref`` and all of them through
+             ``get_layers``, each against the CPU port from the same state
+             (float layers within 1e-4 on 99.9 % of cells with NaN where
+             the CPU has NaN, semantic_filter bit for bit, features_pca
+             channel by channel equal or mirrored within 1); a polygon
+             query (the JAX package's profile.py triangle about the map's
+             centre) and ``initialize_map`` on a fresh map, each against the
+             CPU port.
+             Exports, query and initialisation launch neither kernel.
+             Latency (median and p90 of 10 calls) and device time of each
+             export and of the query, and min_filter at s=5, 5 iterations
+             beside the YAML's s=1, 2. Says whether cv2 is installed
+             (inpainting and erosion take their cv2 branch if it is).
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
@@ -105,6 +122,16 @@ EXACT_UPDATES = 8
 MAIN_CMP_UPDATES = 2
 SEMANTIC_UPDATES = 8
 ALL_FUSIONS_UPDATES = 3
+PLUGIN_UPDATES = 2
+PLUGIN_TIMED_CALLS = 10
+# the polygon of the JAX package's profile.py: a right triangle of 2 m legs, moved
+# so that its centroid is the map's centre
+PROFILE_TRIANGLE = np.array([[0.0, 0.0], [2.0, 0.0], [0.0, 2.0]], np.float32)
+# initialize_map's sparse points, (x, y, z) about the map's centre
+INIT_POINTS = np.array([
+    [1.5, 1.2, 0.1], [-1.8, 1.0, 0.25], [1.0, -2.2, -0.05], [-1.4, -1.6, 0.3],
+    [0.1, 0.2, 0.15], [2.4, -0.4, 0.0], [-0.3, 2.6, 0.2], [-2.5, -0.2, 0.05],
+])
 IMAGE_SHAPE = (480, 640)
 IMAGE_CALLS = {"shadow": 10, "bresenham": 2}
 # image path, card against CPU: atan2/cos/sin round an ulp apart, which can
@@ -138,6 +165,29 @@ ALL_FUSIONS_TABLE = (
 ALL_FUSIONS_CHANNELS = ("f_avg", "f_bayes", "f_dir", "max_a", "max_b")
 LAYERS = ["elevation", "variance", "is_valid", "traversability", "time",
           "upper_bound", "is_upper_bound", "normal_x", "normal_y", "normal_z"]
+# configs/plugin_config.yaml as a literal (the card's machine has no PyYAML;
+# tests/test_torch_plugins.py holds it to the YAML): per plugin its type,
+# layer name, fill_nan, is_height_layer and extra_params
+PLUGIN_SETTINGS = (
+    ("min_filter", "min_filter", True, True, {"dilation_size": 1, "iteration_n": 2}),
+    ("smooth_filter", "smooth", False, True, {"input_layer_name": "elevation"}),
+    ("inpainting", "inpaint", False, True, {"method": "telea"}),
+    ("max_filter", "max_filter", True, True, {"dilation_size": 1, "iteration_n": 2}),
+    ("erosion", "erosion", False, False, {"input_layer_name": "traversability"}),
+    ("semantic_traversability", "semantic_traversability", False, False,
+     {"layers": ["traversability"], "thresholds": [0.3], "type": ["traversability"]}),
+    ("max_layer_filter", "max_layer", False, False,
+     {"layers": ["traversability"], "reverse": [True], "min_or_max": "max", "thresholds": [False], "scales": [1.0]}),
+    ("robot_centric_elevation", "robot_centric_elevation", False, False,
+     {"resolution": 0.1, "threshold": 0.0, "use_threshold": False}),
+)
+# the two plugins over semantic layers that the plugins phase adds, over
+# semantic_mem.yaml's class layers
+CLASS_LAYERS = ["grass", "tree", "person"]
+SEMANTIC_PLUGIN_SETTINGS = (
+    ("semantic_filter", "semantic_filter", False, False, {"classes": CLASS_LAYERS}),
+    ("features_pca", "features_pca", False, False, {"process_layer_names": CLASS_LAYERS}),
+)
 
 
 def log(msg: str) -> None:
@@ -185,6 +235,42 @@ def semantic_config():
         average_weight=0.5,
         image_exponential_alpha=0.7,
     )
+
+
+def plugin_settings(settings=PLUGIN_SETTINGS):
+    """(plugin params, extra params) for ``PluginManager.init`` from a
+    settings table such as PLUGIN_SETTINGS."""
+    from elevation_mapping_cupy_torch.plugins import PluginParams
+
+    params = [PluginParams(name=t, layer_name=l, fill_nan=f, is_height_layer=h) for t, l, f, h, _ in settings]
+    return params, [copy.deepcopy(extra) for *_, extra in settings]
+
+
+def pca_channels(got: np.ndarray, want: np.ndarray) -> list:
+    """Two features_pca layers (0x00RRGGBB in a float32's bits) channel by
+    channel: an eigenvector's sign is its solver's choice. A channel is
+    c = trunc(x) with x the projection scaled to 0..255; a flipped axis
+    gives trunc(255 - x), which is 254 - c (255 - c where x is a whole
+    number), and the two solvers' roundings move either truncation by one.
+    Returns per channel "equal" (|c' - c| <= 1 on every cell) or "mirrored"
+    (|c' - (254 - c)| <= 1 on every cell); raises if a channel is neither."""
+    a = np.ascontiguousarray(got, np.float32).view(np.uint32).astype(np.int64)
+    b = np.ascontiguousarray(want, np.float32).view(np.uint32).astype(np.int64)
+    if (a >> 24).any() or (b >> 24).any():
+        raise AssertionError("features_pca: a value is no packed colour")
+    out = []
+    for shift in (16, 8, 0):
+        ca, cb = (a >> shift) & 0xFF, (b >> shift) & 0xFF
+        if np.abs(ca - cb).max(initial=0) <= 1:
+            out.append("equal")
+        elif np.abs(ca - (254 - cb)).max(initial=0) <= 1:
+            out.append("mirrored")
+        else:
+            raise AssertionError(
+                f"features_pca channel {2 - shift // 8}: off by {np.abs(ca - cb).max()} "
+                f"(mirrored: {np.abs(ca - (254 - cb)).max()})"
+            )
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1046,6 +1132,164 @@ def phase_image(em, kernel_regs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# post-processing: plugins, polygon query, initialize_map
+# ---------------------------------------------------------------------------
+
+def _latency_ms(fn, calls: int = PLUGIN_TIMED_CALLS) -> dict:
+    """Host clock around ``calls`` calls of ``fn``, each ended by a
+    synchronise: median and p90 in ms (after one untimed call)."""
+    fn()
+    lat = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return {"latency_ms_median": float(np.median(lat)), "latency_ms_p90": float(np.percentile(lat, 90))}
+
+
+def _timed_call(fn) -> dict:
+    """Latency and, from torch.profiler, device ms and device operations per
+    call of ``fn``."""
+    res = _latency_ms(fn)
+    prof = profile_calls([fn] * 3)
+    res["device_ms"] = prof["device_ms_per_update"]
+    res["device_ops"] = prof["device_ops_per_update"]
+    res["top_device_ms"] = dict(list(prof["top_device_ms_per_update"].items())[:4])
+    return res
+
+
+def _compare_plugin_layers(tag: str, got: dict, want: dict) -> dict:
+    """Card against CPU plugin layers: semantic_filter bit for bit on every
+    cell, features_pca channel by channel, the float layers within CMP_ATOL
+    on CMP_MIN_SHARE of cells with NaN exactly where the CPU has NaN."""
+    stats = {}
+    floats = [nm for nm in want if nm not in ("semantic_filter", "features_pca")]
+    for nm in floats:
+        if not np.array_equal(np.isnan(got[nm]), np.isnan(want[nm])):
+            raise AssertionError(f"{tag}: {nm} has NaN in other cells than on the CPU")
+    stats.update(_compare_layers(tag, {nm: got[nm] for nm in floats}, {nm: want[nm] for nm in floats}))
+    if "semantic_filter" in want:
+        stats.update(_compare_layers(tag, {"semantic_filter": got["semantic_filter"]},
+                                     {"semantic_filter": want["semantic_filter"]},
+                                     packed=("semantic_filter",), min_share=1.0))
+    if "features_pca" in want:
+        stats["features_pca"] = {"channels": pca_channels(got["features_pca"], want["features_pca"])}
+    return stats
+
+
+def phase_plugins(em, kernel_regs):
+    """Post-processing on the first semantic map (module docstring, phase
+    10), against the CPU port."""
+    from elevation_mapping_cupy_torch.mapper import ElevationMap
+    from elevation_mapping_cupy_torch.ops import stencil
+    from elevation_mapping_cupy_torch.plugins.builtin import cv2_available
+    from elevation_mapping_cupy_torch.state import state_from_numpy, state_to_numpy
+
+    cv2 = cv2_available()
+    log("plugins: cv2 " + ("installed: inpainting and erosion take their cv2 branch on the host" if cv2 else
+                           "not installed: inpainting diffuses on the card, erosion takes a NumPy minimum"))
+    settings = PLUGIN_SETTINGS + SEMANTIC_PLUGIN_SETTINGS
+    em.plugin_manager.init(*plugin_settings(settings))
+    names = em.plugin_manager.layer_names
+    channels = ["x", "y", "z"] + list(MEM_CHANNELS)
+    rng = np.random.default_rng(11)
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    for k in range(PLUGIN_UPDATES):
+        R, t, pos = robot_pose(2 + SEMANTIC_UPDATES + k)
+        em.move_to(pos, R)
+        em.input_pointcloud(mem_cloud(rng, MAIN_POINTS, R, t), channels, R, t, 0.0, 0.0)
+    torch.cuda.synchronize()
+    update_launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    check_launches("plugins (updates)", update_launches, PLUGIN_UPDATES, {"scatter_add_streams": 5, "exact_march": 0})
+
+    cpu = ElevationMap(em.cfg, device="cpu")
+    cpu.state = state_from_numpy(state_to_numpy(em.state), "cpu")
+    cpu.plugin_manager.init(*plugin_settings(settings))
+    cpu.plugin_manager.layers = em.plugin_manager.layers.cpu()
+    n = em.cell_n
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    got, want = {}, {}
+    for nm in names:
+        got[nm], want[nm] = np.full((n - 2, n - 2), 7.0, np.float32), np.full((n - 2, n - 2), 7.0, np.float32)
+        em.get_map_with_name_ref(nm, got[nm])
+        cpu.get_map_with_name_ref(nm, want[nm])
+    torch.cuda.synchronize()
+    res = {"cv2": cv2, "layers": names, "cpu_compare": _compare_plugin_layers("plugin exports", got, want)}
+    all_got, all_want = em.get_layers(names), cpu.get_layers(names)
+    if list(all_got) != names:
+        raise AssertionError(f"get_layers returned {list(all_got)}")
+    res["cpu_compare_get_layers"] = _compare_plugin_layers("plugin get_layers", all_got, all_want)
+    for nm in names:
+        if not np.array_equal(np.ascontiguousarray(all_got[nm]).view(np.uint32), got[nm].view(np.uint32)):
+            raise AssertionError(f"get_layers and get_map_with_name_ref disagree on {nm}")
+    if np.isfinite(got["smooth"]).mean() < 0.99 or np.count_nonzero(got["semantic_filter"]) < 0.2 * n * n:
+        raise AssertionError("implausible plugin layers: smooth has NaN or semantic_filter is mostly empty")
+    buf = np.empty((n - 2, n - 2), np.float32)
+    res["exports"] = {nm: _timed_call(lambda nm=nm: em.get_map_with_name_ref(nm, buf)) for nm in names}
+    res["get_layers_all"] = _timed_call(lambda: em.get_layers(names))
+
+    # the polygon query: profile.py's triangle about the map's centre
+    poly = PROFILE_TRIANGLE - PROFILE_TRIANGLE.mean(axis=0) + em.center[:2]
+    out = {}
+    for tag, m in (("card", em), ("cpu", cpu)):
+        result = np.zeros(3)
+        count = m.get_polygon_traversability(poly, result)
+        ring = np.zeros((count, 2))
+        m.get_untraversable_polygon(ring)
+        out[tag] = (result, count, ring)
+    (r_g, c_g, ring_g), (r_c, c_c, ring_c) = out["card"], out["cpu"]
+    if r_g[0] != r_c[0] or r_g[2] != r_c[2] or c_g != c_c or not np.array_equal(ring_g, ring_c):
+        raise AssertionError(f"polygon query: card {r_g.tolist()}, {c_g} vertices; CPU {r_c.tolist()}, {c_c}")
+    if not abs(r_g[1] - r_c[1]) <= 1e-6 * max(1.0, abs(r_c[1])):
+        raise AssertionError(f"polygon query: mean cost {r_g[1]} on the card, {r_c[1]} on the CPU")
+    result = np.zeros(3)
+    res["polygon"] = {
+        "result": r_g.tolist(), "hull_vertices": c_g, "cpu_result": r_c.tolist(),
+        **_timed_call(lambda: em.get_polygon_traversability(poly, result)),
+    }
+
+    # initialize_map on a fresh map
+    init = {}
+    pts = INIT_POINTS + em.center
+    for tag, dev in (("card", "cuda"), ("cpu", "cpu")):
+        m = ElevationMap(em.cfg, device=dev)
+        m.move_to(em.center, np.eye(3, dtype=np.float32))
+        m.initialize_map(pts, "linear")
+        init[tag] = m.get_layers(["elevation", "variance", "is_valid", "upper_bound"])
+        if tag == "card":
+            card_map = m
+    res["initialize_map"] = _compare_layers("initialize_map", init["card"], init["cpu"])
+    valid = init["card"]["is_valid"] > 0.5
+    if valid.mean() < 0.2 or not np.isfinite(init["card"]["elevation"][valid]).all():
+        raise AssertionError(f"initialize_map: {valid.mean():.3f} of cells valid")
+    res["initialize_map"]["valid_share"] = float(valid.mean())
+    res["initialize_map"].update(_latency_ms(lambda: card_map.initialize_map(pts, "linear"), 3))
+
+    # min_filter at the plugin's default s=5, 5 iterations beside the YAML's s=1, 2
+    h, mask = em.state.layers[0], em.state.layers[2]
+    res["min_filter_sizes"] = {}
+    for size, iters in ((1, 2), (5, 5)):
+        a = stencil.min_filter(h, mask, size, iters)
+        b = stencil.min_filter(h.cpu(), mask.cpu(), size, iters)
+        if not np.array_equal(a.cpu().numpy().view(np.uint32), b.numpy().view(np.uint32)):
+            raise AssertionError(f"min_filter s={size} differs between the card and the CPU")
+        res["min_filter_sizes"][f"s={size} iterations={iters}"] = _timed_call(
+            lambda size=size, iters=iters: stencil.min_filter(h, mask, size, iters)
+        )
+    torch.cuda.synchronize()
+    export_launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    check_launches("plugins (exports, polygon query, initialize_map)", export_launches, 1,
+                   {"scatter_add_streams": 0, "exact_march": 0})
+    res["launches_updates"], res["launches_exports"] = update_launches, export_launches
+    log("plugins: " + json.dumps(res))
+    return res
+
+
 def profile_updates(em, rng, n_updates: int = 5, pose: int = 300, make_cloud=scene_cloud,
                     channels=("x", "y", "z")) -> dict:
     """Where one update's time goes: torch.profiler over back-to-back
@@ -1173,11 +1417,13 @@ def main(argv=None) -> int:
     timed("replay", phase_replay, cfg, regs)
     sem_map, mem_res, allf_res = timed("semantic", phase_semantic, cfg, regs)
     image_res = timed("image", phase_image, sem_map, regs)
+    plugin_res = timed("plugins", phase_plugins, sem_map, regs)
     log(f"total: {time.perf_counter() - t0:.1f} s")
     path_launches = {
         "polar": launches, "exact": exact_launches, "semantic_mem": mem_res["launches"],
         "semantic_all_fusions": allf_res["launches"],
         "image_shadow": image_res["shadow"]["launches"], "image_bresenham": image_res["bresenham"]["launches"],
+        "plugins_updates": plugin_res["launches_updates"], "plugins_exports": plugin_res["launches_exports"],
     }
     line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS, path_launches)
     if args.json:
@@ -1185,6 +1431,7 @@ def main(argv=None) -> int:
             json.dump({
                 "card": smi, "kernels_line": line, "polar": main_res, "exact": exact_res,
                 "semantic_mem": mem_res, "semantic_all_fusions": allf_res, "image": image_res,
+                "plugins": plugin_res,
                 "scatter_cases": list(cases.values()),
                 "march_cases": list(march_cases.values()) + list(fresh_cases.values()),
             }, f, indent=1)

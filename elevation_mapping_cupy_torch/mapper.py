@@ -2,10 +2,11 @@
 
 PyTorch counterpart of ``elevation_mapping_cupy_tpu/mapper.py``: point
 clouds with or without semantic channels, images, map motion, maintenance
-timers, the core, normal and semantic layer exports, and npz checkpoints in
+timers, the core, normal, semantic and plugin layer exports, the named
+getters, polygon safety queries, ``initialize_map``, and npz checkpoints in
 the JAX package's schema (a checkpoint saved by either package loads in the
-other). Plugin layers, polygon queries and ``initialize_map`` are not ported
-yet. Everything a caller reads back is host NumPy.
+other). Everything a caller reads back is host NumPy; internal callers read
+layers on the device (``_layer_tensor``).
 
 Colour and class-max layers hold integers packed into the bits of a float32
 (``semantic/fusions.py``): they are exported, shifted and checkpointed as
@@ -26,8 +27,12 @@ import torch
 from . import core
 from .config import DEFAULT_CORE_LAYERS, MapConfig
 from .nn.traversability import DEFAULT_WEIGHT_FILE, TravFilter, default_weights, load_weights_npz
+from .ops import polygon as poly_ops
+from .ops import stencil
 from .ops.raycast import AdaptiveExactRouter
+from .plugins import PluginManager
 from .state import MapState, init_state, state_from_numpy, state_to_numpy
+from .utils.hull import convex_hull
 
 __all__ = ["ElevationMap", "resolve_device"]
 
@@ -98,6 +103,7 @@ class ElevationMap:
         cfg: MapConfig,
         weights: Optional[TravFilter] = None,
         weight_file: Optional[str] = None,
+        plugin_config_file: Optional[str] = None,
         device: Union[None, str, torch.device] = None,
     ):
         self.device = resolve_device(device)
@@ -116,6 +122,11 @@ class ElevationMap:
                 weights = default_weights()
         self.weights = weights.to(self.device)
         self.state = init_state(cfg, self.device)
+        self.untraversable_polygon = np.zeros((1, 2))
+
+        self.plugin_manager = PluginManager(cell_n=self.cell_n, device=self.device)
+        if plugin_config_file:
+            self.plugin_manager.load_plugin_settings(plugin_config_file)
         # gated/flat routing of the exact cleanup (raycast_exact_impl="auto"):
         # the last gated update's survivor fraction routes the next update
         self._exact_router = AdaptiveExactRouter(cfg)
@@ -299,43 +310,213 @@ class ElevationMap:
 
     # --------------------------------------------------------------- exports
     def _exportable(self, name: str) -> bool:
+        """A layer that ``_export`` crops in one go (no plugin)."""
         return name in self.layer_names or name in _NORMAL_LAYERS or name in self.cfg.semantic_layers
 
     def exists_layer(self, name: str) -> bool:
-        return self._exportable(name)
+        return self._exportable(name) or name in self.plugin_manager.layer_names
+
+    def _process_for_publish(self, m: torch.Tensor, fill_nan: bool = False, add_z: bool = False) -> torch.Tensor:
+        if fill_nan:
+            m = torch.where(self.state.layers[2] > 0.5, m, math.nan)
+        if add_z:
+            m = m + self.state.center[2]
+        return m[1:-1, 1:-1]
+
+    def _update_plugin(self, name: str) -> torch.Tensor:
+        """Compute plugin layer ``name`` from the current state; returns the
+        uncropped layer on the map's device."""
+        self.plugin_manager.update_with_name(
+            name,
+            self.state.layers,
+            self.layer_names,
+            self.state.semantic,
+            self.semantic_layer_names,
+            self.state.rotation,
+            {"id_max": self.state.id_max},
+        )
+        return self.plugin_manager.get_map_with_name(name)
+
+    def _get_named_map(self, name: str) -> Optional[torch.Tensor]:
+        """The named layer as published, unflipped, on the map's device (a
+        plugin layer is computed first); None for an unknown name."""
+        if self._exportable(name):
+            return _export(self.state, self.cfg, name, False)
+        if name in self.plugin_manager.layer_names:
+            m = self._update_plugin(name)
+            p = self.plugin_manager.get_param_with_name(name)
+            return self._process_for_publish(m, fill_nan=p.fill_nan, add_z=p.is_height_layer)
+        return None
+
+    def _layer_tensor(self, name: str) -> Optional[torch.Tensor]:
+        """Uncropped layer on the map's device (``get_layer`` without the
+        copy to the host)."""
+        if name in self.layer_names:
+            return self.state.layers[self.layer_names.index(name)]
+        if name in self.semantic_layer_names:
+            return self.state.semantic[self.semantic_layer_names.index(name)]
+        if name in self.plugin_manager.layer_names:
+            return self._update_plugin(name)
+        return None
+
+    def get_layer(self, name: str) -> Optional[np.ndarray]:
+        """Uncropped layer access (elevation_mapping.py:807-835), as host
+        NumPy; None for an unknown name."""
+        m = self._layer_tensor(name)
+        return None if m is None else m.to("cpu", copy=True).numpy()
+
+    # the named getters: unflipped exports, as host NumPy (a copy: a crop of
+    # a CPU map's layer is a view of its state)
+    def _named(self, name: str) -> np.ndarray:
+        return _export(self.state, self.cfg, name, False).to("cpu", copy=True).numpy()
+
+    def get_elevation(self) -> np.ndarray:
+        return self._named("elevation")
+
+    def get_variance(self) -> np.ndarray:
+        return self._named("variance")
+
+    def get_traversability(self) -> np.ndarray:
+        return self._named("traversability")
+
+    def get_time(self) -> np.ndarray:
+        return self._named("time")
+
+    def get_upper_bound(self) -> np.ndarray:
+        return self._named("upper_bound")
+
+    def get_is_upper_bound(self) -> np.ndarray:
+        return self._named("is_upper_bound")
+
+    def get_normal_maps(self) -> np.ndarray:
+        return torch.flip(self.state.normal[:, 1:-1, 1:-1], dims=(1, 2)).cpu().numpy()
+
+    def get_normal_ref(self, nx, ny, nz) -> None:
+        maps = self.get_normal_maps()
+        nx[...], ny[...], nz[...] = maps[0], maps[1], maps[2]
 
     def get_map_with_name_ref(self, name: str, data: np.ndarray) -> None:
         """Write the named layer (cropped and double-flipped like the
-        reference GridMap export, elevation_mapping.py:720-775) into ``data``."""
-        if not self._exportable(name):
+        reference GridMap export, elevation_mapping.py:720-775) into ``data``;
+        a plugin layer is computed first."""
+        m = self._get_named_map(name)
+        if m is None:
             print(f"Layer {name} is not in the map")
             return
-        data[...] = _export(self.state, self.cfg, name, True).cpu().numpy()
+        data[...] = torch.flip(m, dims=(0, 1)).cpu().numpy()
 
     def get_layers(self, names) -> Dict[str, np.ndarray]:
         """Several layers in one device->host copy: {name: (n, n) float32},
-        flipped like the GridMap export."""
-        for nm in names:
-            if not self._exportable(nm):
+        flipped like the GridMap export. As in the JAX package, the core,
+        normal and semantic layers come first and the plugin layers after
+        them, each group in the order asked."""
+        names = list(names)
+        order = [nm for nm in names if self._exportable(nm)]
+        order += [nm for nm in names if not self._exportable(nm)]
+        maps = {}
+        for nm in order:
+            if nm in maps:
+                continue
+            m = self._get_named_map(nm)
+            if m is None:
                 print(f"Layer {nm} is not in the map")
-        names = [nm for nm in names if self._exportable(nm)]
-        if not names:
+                continue
+            maps[nm] = m
+        if not maps:
             return {}
-        stacked = torch.stack([_export(self.state, self.cfg, nm, True) for nm in names]).cpu().numpy()
-        return {nm: stacked[i] for i, nm in enumerate(names)}
+        stacked = torch.flip(torch.stack(list(maps.values())), dims=(1, 2)).cpu().numpy()
+        return {nm: stacked[i] for i, nm in enumerate(maps)}
 
-    # ------------------------------------------------------ not ported yet
-    def get_polygon_traversability(self, *args, **kwargs):
-        raise NotImplementedError("polygon queries come with a later slice of the port")
+    # --------------------------------------------------------------- queries
+    def _polygon_stats(self, checker: torch.Tensor, poly_padded: torch.Tensor, n_vertices: int):
+        """Polygon mask, masked traversability statistics and the unsafe-cell
+        mask on the device, read back once: (t, max untraversability,
+        unsafe (n-2, n-2) bool)."""
+        cfg = self.cfg
+        mask = poly_ops.polygon_mask(poly_padded, n_vertices, self.state.center[:2], cfg)
+        masked, masked_isvalid = poly_ops.masked_traversability(self.state.layers, mask, checker)
+        s = torch.sum(masked_isvalid)
+        t = torch.where(s > 0, torch.sum(masked) / torch.clamp(s, min=1), 0.0)
+        over = masked > (1 - cfg.safe_thresh)
+        host = torch.cat([t.view(1), torch.amax(masked).view(1), over.reshape(-1).to(t.dtype)]).cpu().numpy()
+        return float(host[0]), float(host[1]), host[2:].reshape(over.shape) > 0.5
 
-    def get_untraversable_polygon(self, *args, **kwargs):
-        raise NotImplementedError("polygon queries come with a later slice of the port")
+    def get_polygon_traversability(self, polygon, result) -> int:
+        """Polygon safety check (elevation_mapping.py:837-889): writes
+        [is_safe, mean traversability cost, area] into ``result`` and returns
+        the vertex count of the unsafe cells' hull (0 without one)."""
+        polygon = np.asarray(polygon, np.float32)
+        area = _shoelace(polygon)
+        center = self.center
+        pmin = center[:2] - self.map_length / 2 + self.resolution
+        pmax = center[:2] + self.map_length / 2 - self.resolution
+        clipped = polygon.copy()
+        clipped[:, 0] = clipped[:, 0].clip(pmin[0], pmax[0])
+        clipped[:, 1] = clipped[:, 1].clip(pmin[1], pmax[1])
+        clipped_area = _shoelace(clipped)
 
-    def initialize_map(self, *args, **kwargs):
-        raise NotImplementedError("initialize_map comes with a later slice of the port")
+        nv = clipped.shape[0]
+        vpad = max(8, 1 << int(math.ceil(math.log2(max(nv, 1)))))
+        poly_padded = np.zeros((vpad, 2), np.float32)
+        poly_padded[:nv] = clipped
+        checker = self._layer_tensor(self.cfg.checker_layer)
+        t, max_untrav, over = self._polygon_stats(checker, torch.from_numpy(poly_padded).to(self.device), nv)
+        is_safe = True
+        if over.sum() > self.cfg.max_unsafe_n:
+            is_safe = False
+        elif max_untrav > 1 - self.cfg.safe_min_thresh:
+            is_safe = False
 
-    def get_layer(self, *args, **kwargs):
-        raise NotImplementedError("get_layer comes with the plugin slice of the port")
+        un_poly = None
+        xy = np.argwhere(over)
+        if len(xy) >= 3:
+            un_poly = convex_hull(xy.astype(np.float64))
+        n_unpoly = 0
+        if un_poly is not None:
+            un_poly = center[:2].reshape(1, 2) + (un_poly - self.cell_n / 2.0) * self.resolution
+            n_unpoly = un_poly.shape[0]
+            self.untraversable_polygon = un_poly
+        else:
+            self.untraversable_polygon = np.zeros((0, 2))
+        if clipped_area < 0.001:
+            is_safe = False
+        result[...] = np.array([is_safe, t, area])
+        return n_unpoly
+
+    def get_untraversable_polygon(self, out) -> None:
+        out[...] = self.untraversable_polygon
+
+    # ------------------------------------------------------------------ init
+    def initialize_map(self, points, method: str = "cubic") -> None:
+        """Sparse-point initialization via scipy griddata on the host
+        (map_initializer.py:25-62 + elevation_mapping.py:899-922), then two
+        dilation fills and the upper bound on the device."""
+        from scipy.interpolate import griddata
+
+        self.clear()
+        pts = np.asarray(points, np.float64)
+        center = self.center
+        indices = ((pts[:, :2] - center[:2].reshape(1, 2)) / self.resolution + self.cell_n / 2).astype(np.int32)
+        values_z = pts[:, 2] - center[2]
+
+        layers = self.state.layers.cpu().numpy().copy()
+        known = np.argwhere(layers[2] > 0.5)
+        known_vals = layers[0][layers[2] > 0.5]
+        pidx = np.vstack([known, indices]).astype(np.float64)
+        vals = np.concatenate([known_vals, values_z])
+        if pidx.shape[0] <= 3:
+            raise ValueError("Initialization points must be more than 3.")
+        gx, gy = np.mgrid[0 : self.cell_n, 0 : self.cell_n]
+        interp = griddata(pidx, vals, (gx, gy), method=method)
+
+        layers[0] = np.nan_to_num(interp)
+        layers[1] = np.where(~np.isnan(interp), self.cfg.initialized_variance, self.cfg.initial_variance)
+        layers[2] = np.where(~np.isnan(interp), 1.0, 0.0)
+        L = torch.from_numpy(layers).to(self.device)
+        if self.cfg.dilation_size_initialize > 0:
+            for _ in range(2):
+                L[0], L[2] = stencil.dilation_fill(L[0], L[2], self.cfg.dilation_size_initialize)
+        self.state = core.update_upper_bound_with_valid_elevation(self.state._replace(layers=L))
 
     # ------------------------------------------------------------ checkpoint
     def save_checkpoint(self, path: str) -> None:
@@ -355,3 +536,12 @@ class ElevationMap:
             if sem_layers != self.cfg.semantic_layers:
                 self.cfg = self.cfg.replace(semantic_layers=sem_layers)
             self.state = state_from_numpy(z, self.device)
+
+
+def _shoelace(polygon: np.ndarray) -> float:
+    area = 0.0
+    for i in range(len(polygon)):
+        p1 = polygon[i - 1]
+        p2 = polygon[i]
+        area += (p1[0] * p2[1] - p1[1] * p2[0]) / 2.0
+    return abs(area)

@@ -182,11 +182,15 @@ def test_mapper_refuses_what_is_not_ported():
     K = np.array([[20, 0, 32], [0, 20, 24], [0, 0, 1]], np.float32)
     tem.input_image(np.zeros((48, 64), np.float32), ["mask"], np.diag([1.0, -1.0, -1.0]), np.array([0, 0, 1.0]), K, np.zeros(5))
     assert tem.semantic_layer_names == ["rgb", "mask"] and tem.state.semantic.shape[0] == 2
-    # polygon queries, initialize_map and plugin layers wait for the plugin slice
-    for call in (tem.get_polygon_traversability, tem.get_untraversable_polygon, tem.initialize_map, tem.get_layer):
-        with pytest.raises(NotImplementedError):
-            call()
-    assert not tem.exists_layer("min_filter")
+    # polygon queries, initialize_map and plugin layers are ported: without a
+    # plugin config there is no plugin layer, and initialize_map refuses too
+    # few points
+    assert not tem.exists_layer("min_filter") and tem.get_layer("min_filter") is None
+    result = np.zeros(3)
+    assert tem.get_polygon_traversability(np.array([[0, 0], [0.5, 0], [0, 0.5]], np.float32), result) == 0
+    assert result[2] == 0.125
+    with pytest.raises(ValueError, match="more than 3"):
+        tem.initialize_map(np.zeros((3, 3)))
     # the exact march is ported: an exact-mode map takes a cloud
     exact = ElevationMap(MapConfig(**dict(CFG_KW, raycast_mode="exact")), device="cpu")
     R, t, _ = chip_smoke.robot_pose(0)
@@ -231,7 +235,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) >= 16
     rel = {os.path.relpath(p, PKG) for p in files}
-    for sub in ("semantic/__init__.py", "semantic/fusions.py", "semantic/update.py", "ops/image.py"):
+    for sub in ("semantic/__init__.py", "semantic/fusions.py", "semantic/update.py", "ops/image.py",
+                "plugins/builtin.py", "plugins/manager.py", "ops/polygon.py", "ops/gridmap_filters.py", "utils/hull.py"):
         assert sub.replace("/", os.sep) in rel, f"the scan does not reach {sub}"
     for path in files:
         assert not _forbidden_imports(path), f"{path} imports {_forbidden_imports(path)}"

@@ -1,5 +1,6 @@
 """The PyTorch port on a CUDA card: kernels K1 and K2 and the updates through
-them, the semantic fusions and the image path.
+them, the semantic fusions, the image path, and post-processing (stencil
+filters, plugins, polygon mask, grid-map filters).
 
 Every test here needs the card and is marked ``cuda``; without one it
 skips. The file imports no JAX, so it also runs where JAX is not
@@ -434,3 +435,123 @@ def test_input_image_on_card_matches_cpu(card, mode):
     got, want = gpu.get_layers(["rgb", "mask"]), cpu.get_layers(["rgb", "mask"])
     assert (got["rgb"].view(np.uint32) == want["rgb"].view(np.uint32))[both].mean() >= 0.995
     assert (np.abs(got["mask"] - want["mask"]) <= 1e-4)[both].mean() >= 0.995
+
+
+# ---------------------------------------------------------------------------
+# post-processing
+# ---------------------------------------------------------------------------
+
+def _semantic_map_pair(card, frames=2):
+    """A small semantic map (semantic_mem.yaml's layers) on the card and the
+    same state on the CPU."""
+    from elevation_mapping_cupy_torch.state import state_from_numpy, state_to_numpy
+
+    cfg = chip_smoke.semantic_config().replace(resolution=0.1, map_length=6.0, max_ray_length=2.0, max_points=8192)
+    gpu = ElevationMap(cfg)
+    rng = np.random.default_rng(30)
+    names = ["x", "y", "z"] + list(chip_smoke.MEM_CHANNELS)
+    for k in range(frames):
+        R, t, pos = chip_smoke.robot_pose(3 * k)
+        gpu.move_to(pos, R)
+        gpu.input_pointcloud(chip_smoke.mem_cloud(rng, 6000, R, t), names, R, t, 0.0, 0.0)
+    cpu = ElevationMap(gpu.cfg, device="cpu")
+    cpu.state = state_from_numpy(state_to_numpy(gpu.state), "cpu")
+    return gpu, cpu
+
+
+@pytest.mark.parametrize("size, iterations", [(1, 2), (2, 3), (5, 5)])
+def test_stencil_filters_on_card_match_cpu(card, size, iterations):
+    """min_filter / max_filter bit for bit, uniform_smooth within 1e-6, on a
+    mapped state."""
+    from elevation_mapping_cupy_torch.ops import stencil
+
+    gpu, _ = _semantic_map_pair(card)
+    h, m = gpu.state.layers[0], gpu.state.layers[2]
+    for fn in (stencil.min_filter, stencil.max_filter):
+        got, want = fn(h, m, size, iterations), fn(h.cpu(), m.cpu(), size, iterations)
+        assert got.device.type == "cuda"
+        assert np.array_equal(_bits(got), _bits(want))
+    got, want = stencil.uniform_smooth(h, 2, 2 * size + 1), stencil.uniform_smooth(h.cpu(), 2, 2 * size + 1)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+
+
+def test_plugins_on_card_match_cpu(card):
+    """The ten plugins (plugin_config.yaml's eight, semantic_filter and
+    features_pca) exported on the card and on the CPU from the same state:
+    chip_smoke's comparison, and no kernel launched."""
+    gpu, cpu = _semantic_map_pair(card)
+    settings = chip_smoke.PLUGIN_SETTINGS + chip_smoke.SEMANTIC_PLUGIN_SETTINGS
+    for em in (gpu, cpu):
+        em.plugin_manager.init(*chip_smoke.plugin_settings(settings))
+    names = gpu.plugin_manager.layer_names
+    assert len(names) == 10 and gpu.plugin_manager.layers.device.type == "cuda"
+    before = (cuda_scatter.KERNEL.launches, cuda_march.KERNEL.launches)
+    got, want = gpu.get_layers(names), cpu.get_layers(names)
+    torch.cuda.synchronize()
+    assert (cuda_scatter.KERNEL.launches, cuda_march.KERNEL.launches) == before
+    stats = chip_smoke._compare_plugin_layers("plugins", got, want)
+    assert stats["features_pca"]["channels"]
+
+
+def test_polygon_query_and_mask_on_card_match_cpu(card):
+    """polygon_mask on the card equals the CPU's for polygons of 3 to 9
+    vertices, some past the map's edge; the mapper's query gives the same
+    result, count and hull."""
+    from elevation_mapping_cupy_torch.ops import polygon
+
+    gpu, cpu = _semantic_map_pair(card)
+    rng = np.random.default_rng(31)
+    centre = gpu.state.center[:2]
+    for v in (3, 5, 9):
+        ang = np.sort(rng.uniform(0, 2 * np.pi, v))
+        poly = np.stack([np.cos(ang), np.sin(ang)], 1) * rng.uniform(0.5, 4.0, (v, 1))
+        padded = np.zeros((max(8, 1 << int(np.ceil(np.log2(v)))), 2), np.float32)
+        padded[:v] = poly + centre.cpu().numpy()
+        got = polygon.polygon_mask(torch.from_numpy(padded).to(card), v, centre, gpu.cfg)
+        want = polygon.polygon_mask(torch.from_numpy(padded), v, centre.cpu(), gpu.cfg)
+        assert torch.equal(got.cpu(), want) and float(want.sum()) > 0
+        res_g, res_c = np.zeros(3), np.zeros(3)
+        n_g = gpu.get_polygon_traversability(padded[:v], res_g)
+        n_c = cpu.get_polygon_traversability(padded[:v], res_c)
+        assert n_g == n_c and res_g[0] == res_c[0] and res_g[2] == res_c[2]
+        assert abs(res_g[1] - res_c[1]) <= 1e-6 * max(1.0, abs(res_c[1]))
+        assert np.array_equal(gpu.untraversable_polygon, cpu.untraversable_polygon)
+
+
+def test_initialize_map_on_card_matches_cpu(card):
+    gpu, cpu = _semantic_map_pair(card, frames=1)
+    pts = chip_smoke.INIT_POINTS * 0.6 + gpu.center
+    for em in (gpu, cpu):
+        em.initialize_map(pts, "linear")
+    names = ["elevation", "variance", "is_valid", "upper_bound"]
+    got, want = gpu.get_layers(names), cpu.get_layers(names)
+    for name in names:
+        np.testing.assert_allclose(got[name], want[name], rtol=0, atol=1e-5, err_msg=name)
+
+
+def test_gridmap_filters_on_card_match_cpu(card):
+    """The grid-map filter library on the card against the CPU, on a height
+    map with NaN holes: within 1e-5, NaN where the CPU has NaN."""
+    from elevation_mapping_cupy_torch.ops import gridmap_filters as gf
+
+    rng = np.random.default_rng(32)
+    h = rng.normal(0, 0.2, (90, 110)).astype(np.float32)
+    h[20:40, 30:60] = np.nan
+    h[rng.integers(0, 90, 50), rng.integers(0, 110, 50)] = np.nan
+    hg, hc = torch.from_numpy(h).to(card), torch.from_numpy(h)
+    cases = {
+        "inpaint_min_values": lambda x: gf.inpaint_min_values(x),
+        "inpaint_bilinear": lambda x: gf.inpaint_bilinear(x, 16),
+        "resample_up": lambda x: gf.resample(torch.nan_to_num(x), (180, 220)),
+        "resample_down": lambda x: gf.resample(torch.nan_to_num(x), (45, 37)),
+        "median": lambda x: gf.median_filter(x, 5),
+        "box_blur": lambda x: gf.box_blur(x, 3, 2),
+        "gaussian_blur": lambda x: gf.gaussian_blur(x, 5, 1.0),
+        "dilate": lambda x: gf.dilate(x, 3, True),
+        "erode": lambda x: gf.erode(x, 5, False),
+        "curvature": lambda x: torch.stack(gf.estimate_gradient_and_curvature(x, 0.04)),
+    }
+    for name, fn in cases.items():
+        got, want = fn(hg).cpu().numpy(), fn(hc).numpy()
+        assert np.array_equal(np.isnan(got), np.isnan(want)), name
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5, err_msg=name)
