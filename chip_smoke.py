@@ -12,7 +12,13 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              path's shapes (the dense-map scatters take its shared-memory
              path, the polar cube its global path) and at the semantic
              fusions' (3 and 8 feature streams, the colour's integer streams,
-             class_max's 262144 points over 1305728 bins), with the call's time
+             class_max's 262144 points over 1305728 bins) and plane
+             decomposition's (10 moment streams and the bad-cell count of
+             bench_planeseg's 40804 labelled cells over 65 bins, one map
+             and a batch of 16) and the profile entry point's (the default
+             MapConfig: 100000 points padded to 131072, its map and its
+             polar cube's 4718592 bins, colour and class_bayesian), with
+             the call's time
              (CUDA events around the wrapper), the device's own time for it
              (torch.profiler), the plain version's, one PyTorch library
              call's, and the bound (bytes over 3.35 TB/s).
@@ -81,6 +87,28 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              beside the YAML's s=1, 2. Says whether cv2 is installed
              (inpainting and erosion take their cv2 branch if it is).
 
+11. planeseg - ``PlaneDecompositionPipeline(0.04, device="cuda")`` on
+             bench.py::bench_planeseg's scene (202x202 at 0.04 m, two raised
+             boxes, 2 mm noise, 2 % NaN holes, seed 0): one warm-up and 10
+             ``update`` calls, 2 K1 launches each (the per-label moments and
+             the "any bad cell" count); median and p90 of
+             ``timings["total"]`` and of the host clock, device ms and
+             operations per update, the connected components' rounds and
+             the ``timing_report`` table. Checks: labels equal to the CPU
+             port's (the differing cells are printed), the same regions with
+             plane normals and supports within 1e-5, filtered map,
+             elevation and smooth layer within 1e-5 on 99.9 % of cells, a
+             second card update's labels identical. Then ``update_batch`` at
+             B = 16 (bench.py's noise per map), ms per map and 2 K1 launches
+             a call, maps 0 and 15 equal to their own ``update``. K1 runs
+             only at shapes the kernels phase checked; the rounds of each
+             fixed-point loop are printed.
+12. profile - ``elevation_mapping_cupy_torch.profile.main`` (10 iterations of
+             100000 points at the default ``MapConfig``): its stage table,
+             5 K1 launches per update (its warm-up included) at shapes the
+             kernels phase checked, then one update of that map on the card
+             compared with the CPU port from the same state.
+
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
 ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes every
@@ -90,6 +118,7 @@ measured number of the run to PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -158,6 +187,21 @@ MARCH_OPS = {
     "rays": 21, "walked": 9, "fresh": 11, "tested": 1, "eligible": 3, "penetrating": 7,
     "hits": 2, "ub_writes": 1, "segments": 17,
 }
+# plane segmentation: bench.py::bench_planeseg's scene and counts
+PLANESEG_N = 202
+PLANESEG_CALLS = 10
+PLANESEG_BATCH = 16
+PLANESEG_BATCH_CALLS = 5
+PLANESEG_BINS = 65  # PlaneSegParams().max_labels + 1
+# card against CPU port: plane normals and supports, and the float layers on
+# PLANESEG_MIN_SHARE of cells, within PLANESEG_TOL
+PLANESEG_TOL = 1e-5
+PLANESEG_MIN_SHARE = 0.999
+PROFILE_POINTS = 100_000
+PROFILE_ITERS = 10
+PROFILE_ARGS = ["--iters", str(PROFILE_ITERS), "--points", str(PROFILE_POINTS)]
+# the mapper pads a cloud to a power of two (mapper.py::_bucket)
+PROFILE_BUCKET = max(1024, 1 << (PROFILE_POINTS - 1).bit_length())
 MEM_CHANNELS = ("rgb", "grass", "tree", "person")
 ALL_FUSIONS_TABLE = (
     ("f_avg", "average"), ("f_bayes", "bayesian_inference"), ("f_dir", "class_bayesian"), ("max_.*", "class_max"),
@@ -351,6 +395,25 @@ def all_fusions_cloud(rng: np.random.Generator, n: int, R: np.ndarray, t: np.nda
     return np.concatenate([scene_cloud(rng, n, R, t), feats, packed], axis=1)
 
 
+def planeseg_scene(rng: np.random.Generator, n: int = PLANESEG_N) -> np.ndarray:
+    """bench.py::bench_planeseg's height map: flat ground, two raised boxes,
+    2 mm of noise, 2 % NaN holes."""
+    h = np.zeros((n, n), np.float32)
+    h[60:120, 40:160] = 0.3
+    h[140:190, 20:90] = 0.15
+    h += rng.normal(0, 0.002, (n, n)).astype(np.float32)
+    h[rng.random((n, n)) < 0.02] = np.nan
+    return h
+
+
+def planeseg_labels(h: np.ndarray) -> np.ndarray:
+    """The plane labels of a height map by the CPU port (the card's are the
+    same; the planeseg phase checks it)."""
+    from elevation_mapping_cupy_torch.planeseg import extract as E
+
+    return E.extract_planes(E.preprocess(torch.from_numpy(h)), 0.04, E.PlaneSegParams()).labels.numpy()
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -439,16 +502,20 @@ def _cell_indices(rng, b: int, n: int, n_cells: int) -> np.ndarray:
 
 
 def check_scatter_case(rng, label: str, b: int, n: int, n_cells: int, exact, timed: bool = True,
-                       int_max: int = 1, idx_np=None):
+                       int_max: int = 1, idx_np=None, n_real=None):
     """K1 against its plain version on the card at one shape; returns the
     measured numbers. Integer streams hold 0..int_max; ``idx_np`` gives the
-    (b, n) indices where the default density does not fit the caller."""
+    (b, n) indices where the default density does not fit the caller;
+    points from ``n_real`` on are masked off, as the mapper's padding is."""
     from elevation_mapping_cupy_torch.ops import cuda_scatter as cs
 
     k = len(exact)
     dev = "cuda"
     idx = torch.from_numpy(_cell_indices(rng, b, n, n_cells) if idx_np is None else idx_np).to(dev)
-    mask = torch.from_numpy(rng.random((b, n)) > 0.15).to(dev)
+    mask_np = rng.random((b, n)) > 0.15
+    if n_real is not None:
+        mask_np[:, n_real:] = False
+    mask = torch.from_numpy(mask_np).to(dev)
     vals_np = rng.normal(0.5, 0.3, (b, k, n)).astype(np.float32)
     for s, e in enumerate(exact):
         if e:
@@ -533,8 +600,52 @@ def phase_kernels(cfg):
     cases[("cube_class_max", n)] = check_scatter_case(
         rng, f"class_max K=1 N={2 * n} bins={MAX_CLASSES * cells}", 1, 2 * n, MAX_CLASSES * cells, (False,), idx_np=pairs
     )
+    # plane decomposition's two launches (planeseg/extract.py) on the labels
+    # of bench_planeseg's scene: N = 202 * 202 cells into max_labels + 1 = 65
+    # bins, 70 % of them in one; one map, and the batch of 16 of update_batch
+    n = PLANESEG_N * PLANESEG_N
+    lab = planeseg_labels(planeseg_scene(np.random.default_rng(0))).reshape(1, n).astype(np.int32)
+    bins = PLANESEG_BINS
+    cases[("planeseg_moments", n)] = check_scatter_case(
+        rng, f"planeseg moments K=10 N={n} bins={bins}", 1, n, bins, (False,) * 10, idx_np=lab
+    )
+    cases[("planeseg_label_bad", n)] = check_scatter_case(
+        rng, f"planeseg label_bad K=1 N={n} bins={bins}", 1, n, bins, (True,), idx_np=lab
+    )
+    cases[("planeseg_batch_moments", n)] = check_scatter_case(
+        rng, f"planeseg batch moments B={PLANESEG_BATCH} K=10 N={n} bins={bins}", PLANESEG_BATCH, n, bins,
+        (False,) * 10, idx_np=np.repeat(lab, PLANESEG_BATCH, axis=0),
+    )
+    cases[("planeseg_batch_label_bad", n)] = check_scatter_case(
+        rng, f"planeseg batch label_bad B={PLANESEG_BATCH} K=1 N={n} bins={bins}", PLANESEG_BATCH, n, bins,
+        (True,), idx_np=np.repeat(lab, PLANESEG_BATCH, axis=0),
+    )
+    # the profile entry point's five launches per update (profile.py): the
+    # default MapConfig's map and polar cube, PROFILE_POINTS points padded
+    # to PROFILE_BUCKET, colour and class_bayesian over its four channels
+    from elevation_mapping_cupy_torch import profile
+
+    pcfg = profile.profile_config(PROFILE_POINTS)
+    n, real = PROFILE_BUCKET, PROFILE_POINTS
+    pcells = pcfg.cell_n * pcfg.cell_n
+    pbins = pcfg.azimuth_bins * (pcfg.n_ray_steps + 2) * pcfg.raycast_elevation_bins
+    cases[("profile_count", n)] = check_scatter_case(
+        rng, f"profile error counting N={n} ({real} real)", 1, n, pcells, (True, True), n_real=real
+    )
+    cases[("profile_fusion", n)] = check_scatter_case(
+        rng, f"profile point fusion N={n} ({real} real)", 1, n, pcells, (False, False, True, True), n_real=real
+    )
+    cases[("profile_cube", n)] = check_scatter_case(
+        rng, f"profile polar cube N={n} ({real} real) bins={pbins}", 1, n, pbins, (True, False), n_real=real
+    )
+    cases[("profile_class_bayesian", n)] = check_scatter_case(
+        rng, f"profile class_bayesian K=3 N={n} ({real} real)", 1, n, pcells, (False,) * 3, n_real=real
+    )
+    cases[("profile_colour4", n)] = check_scatter_case(
+        rng, f"profile colour count+rgb K=4 N={n} ({real} real)", 1, n, pcells, (True,) * 4, int_max=255, n_real=real
+    )
     for (kind, n), res in cases.items():
-        want = "global" if kind.startswith("cube") else "private"
+        want = "global" if "cube" in kind else "private"
         if res["path"] != want:
             raise AssertionError(f"K1 {kind} N={n} took the {res['path']} path, expected {want}")
     check_scatter_case(rng, "zero points", 1, 0, cells, (True, True), timed=False)
@@ -666,6 +777,37 @@ def phase_main(cfg, kernel_regs):
     prof["device_busy_share_of_median_latency"] = prof["device_ms_per_update"] / res["latency_ms_median"]
     log("profile: " + json.dumps(prof))
     return res, launches, mapped_state
+
+
+@contextlib.contextmanager
+def k1_shapes():
+    """Records the (B, K, N, n_cells) of every K1 call made inside; the
+    kernel's own wrapper still counts the launches."""
+    from elevation_mapping_cupy_torch.ops import cuda_scatter as cs
+
+    shapes, launch = set(), cs.scatter_add_streams
+
+    def recording(idx, mask, values, n_cells):
+        shapes.add(tuple(values.shape) + (n_cells,))
+        return launch(idx, mask, values, n_cells)
+
+    cs.scatter_add_streams = recording
+    try:
+        yield shapes
+    finally:
+        cs.scatter_add_streams = launch
+
+
+def check_shapes(tag: str, shapes: set, checked: set) -> None:
+    """K1 ran on this path, and only at shapes the kernels phase held
+    against its plain version."""
+    if not shapes or not shapes <= checked:
+        raise AssertionError(f"{tag}: K1 shapes {sorted(shapes - checked)} not checked by the kernels phase "
+                             f"(or no launch: {sorted(shapes)})")
+
+
+def checked_shapes(cases: dict) -> set:
+    return {(c["B"], c["K"], c["N"], c["n_cells"]) for c in cases.values()}
 
 
 def check_launches(tag: str, launches: dict, updates: int, per_update: dict) -> None:
@@ -1290,6 +1432,198 @@ def phase_plugins(em, kernel_regs):
     return res
 
 
+# ---------------------------------------------------------------------------
+# plane segmentation and the profile entry point
+# ---------------------------------------------------------------------------
+
+def _same_terrain_layers(tag: str, got, want) -> dict:
+    """Filtered map, elevation and smooth layer of two PlanarTerrains:
+    within PLANESEG_TOL on PLANESEG_MIN_SHARE of cells."""
+    stats = {}
+    for name in ("filtered_map", "elevation", "smooth_planar"):
+        a, b = getattr(got, name), getattr(want, name)
+        close = (np.isnan(a) & np.isnan(b)) | (np.abs(a - b) <= PLANESEG_TOL)
+        finite = np.isfinite(a) & np.isfinite(b)
+        stats[name] = {"share_within": float(close.mean()),
+                       "max_abs": float(np.abs(a[finite] - b[finite]).max()) if finite.any() else 0.0}
+        if not close.mean() >= PLANESEG_MIN_SHARE:
+            raise AssertionError(f"{tag}: {name} within {PLANESEG_TOL} on {close.mean():.5f} of cells")
+    return stats
+
+
+def _same_regions(tag: str, got, want) -> dict:
+    """Region count, labels and plane tables of two PlanarTerrains; returns
+    the largest normal and support differences."""
+    if len(got.regions) != len(want.regions):
+        raise AssertionError(f"{tag}: {len(got.regions)} regions against {len(want.regions)}")
+    worst = {"normal": 0.0, "support": 0.0}
+    for rg, rw in zip(got.regions, want.regions):
+        dn = float(np.abs(rg.normal - rw.normal).max())
+        ds = float(np.abs(rg.support - rw.support).max())
+        if rg.label != rw.label or not (dn <= PLANESEG_TOL and ds <= PLANESEG_TOL):
+            raise AssertionError(f"{tag}: region {rg.label}/{rw.label} normal off by {dn}, support by {ds}")
+        worst = {"normal": max(worst["normal"], dn), "support": max(worst["support"], ds)}
+    return worst
+
+
+def phase_planeseg(kernel_regs, checked: set):
+    """Plane decomposition on the card (module docstring, phase 11)."""
+    from elevation_mapping_cupy_torch.ops import gridmap_filters as gf
+    from elevation_mapping_cupy_torch.planeseg import PlaneDecompositionPipeline
+    from elevation_mapping_cupy_torch.planeseg import extract as E
+
+    rng = np.random.default_rng(0)
+    h = planeseg_scene(rng)
+    n = PLANESEG_N
+    pipe = PlaneDecompositionPipeline(resolution=0.04, device="cuda")
+    pipe.update(h)  # warm-up
+    pipe._stats = {}
+    torch.cuda.synchronize()
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    wall = []
+    for _ in range(PLANESEG_CALLS):
+        t0 = time.perf_counter()
+        terrain = pipe.update(h)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    check_launches("planeseg", launches, PLANESEG_CALLS, {"scatter_add_streams": 2, "exact_march": 0})
+    totals = np.asarray(pipe._stats["total"]) * 1e3
+    report = pipe.timing_report()
+    stages = {k: float(np.mean(v) * 1e3) for k, v in pipe._stats.items()}
+
+    # the determinism update also records K1's shapes and the rounds of
+    # each fixed-point loop (connected components; the inpainting of the
+    # preprocess and of the smooth layer)
+    rounds = {"connected_components": [], "inpaint_min_values": []}
+    loop = gf.fixed_point
+
+    def recording(key):
+        def run(step, x, cap):
+            out = loop(step, x, cap)
+            rounds[key].append(out[1])
+            return out
+        return run
+
+    E.fixed_point, gf.fixed_point = recording("connected_components"), recording("inpaint_min_values")
+    try:
+        with k1_shapes() as shapes:
+            again = pipe.update(h)
+    finally:
+        E.fixed_point = gf.fixed_point = loop
+    check_shapes("planeseg", shapes, checked)
+    if not np.array_equal(again.labels, terrain.labels):
+        raise AssertionError(f"planeseg: a second card update differs in {int((again.labels != terrain.labels).sum())} labels")
+    t0 = time.perf_counter()
+    cpu = PlaneDecompositionPipeline(resolution=0.04, device="cpu").update(h)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    differing = int((terrain.labels != cpu.labels).sum())
+    log(f"planeseg: labels differing from the CPU port in {differing} of {n * n} cells")
+    if differing:
+        raise AssertionError(f"planeseg: card labels differ from the CPU port's in {differing} cells")
+    plane_err = _same_regions("planeseg card against CPU", terrain, cpu)
+    layers = _same_terrain_layers("planeseg card against CPU", terrain, cpu)
+    if pipe.params.max_labels + 1 != PLANESEG_BINS:
+        raise AssertionError("the kernels phase's planeseg cases assume max_labels + 1 == PLANESEG_BINS")
+    if len(terrain.regions) < 3 or not np.isfinite(terrain.elevation).all():
+        raise AssertionError(f"planeseg: {len(terrain.regions)} regions or a non-finite elevation")
+
+    prof = profile_calls([lambda: pipe.update(h)] * 3)
+
+    # update_batch at B = 16: bench.py's per-map noise on the same scene
+    hb = np.stack([h] * PLANESEG_BATCH)
+    hb += rng.normal(0, 0.002, hb.shape).astype(np.float32)
+    with k1_shapes() as shapes:
+        pipe.update_batch(hb)  # warm-up
+    check_shapes("planeseg update_batch", shapes, checked)
+    torch.cuda.synchronize()
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    batch_ms = []
+    for _ in range(PLANESEG_BATCH_CALLS):
+        t0 = time.perf_counter()
+        batch = pipe.update_batch(hb)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    batch_launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    check_launches("planeseg update_batch", batch_launches, PLANESEG_BATCH_CALLS,
+                   {"scatter_add_streams": 2, "exact_march": 0})
+    for b in (0, PLANESEG_BATCH - 1):
+        alone = pipe.update(hb[b])
+        if not np.array_equal(batch[b].labels, alone.labels):
+            raise AssertionError(f"planeseg: update_batch map {b} differs from its update in "
+                                 f"{int((batch[b].labels != alone.labels).sum())} labels")
+
+    ms = np.asarray(wall)
+    res = {
+        "map": [n, n], "resolution": 0.04, "calls": PLANESEG_CALLS,
+        "total_ms_median": float(np.median(totals)), "total_ms_p90": float(np.percentile(totals, 90)),
+        "wall_ms_median": float(np.median(ms)), "wall_ms_p90": float(np.percentile(ms, 90)), "wall_ms": ms.tolist(),
+        "stages_mean_ms": stages, "device_ms": prof["device_ms_per_update"],
+        "device_ops": prof["device_ops_per_update"], "top_device_ms": prof["top_device_ms_per_update"],
+        "device_busy_share_of_median": prof["device_ms_per_update"] / float(np.median(ms)),
+        "k1_launches_per_update": launches["scatter_add_streams"] / PLANESEG_CALLS,
+        "cc_rounds": 1 + rounds["connected_components"][0], "inpaint_rounds": rounds["inpaint_min_values"],
+        "regions": len(terrain.regions),
+        "label_counts": {int(k): int(v) for k, v in zip(*np.unique(terrain.labels, return_counts=True))},
+        "labels_differing_from_cpu": differing, "plane_max_diff_from_cpu": plane_err, "cpu_compare": layers,
+        "cpu_port_ms": cpu_ms, "batch": PLANESEG_BATCH, "batch_ms_median": float(np.median(batch_ms)),
+        "batch_ms_per_map": float(np.median(batch_ms)) / PLANESEG_BATCH, "launches": launches,
+        "batch_launches": batch_launches,
+    }
+    log("planeseg timing_report:\n" + report)
+    log("planeseg: " + json.dumps(res))
+    return res
+
+
+def phase_profile(kernel_regs, checked: set):
+    """The port's profile entry point on the card (module docstring, phase
+    12); returns its stage table, the launches of its run and the
+    comparison of one update of its map with the CPU port."""
+    from elevation_mapping_cupy_torch import profile
+    from elevation_mapping_cupy_torch.mapper import ElevationMap
+    from elevation_mapping_cupy_torch.state import state_from_numpy, state_to_numpy
+
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    with k1_shapes() as shapes:
+        table = profile.main(PROFILE_ARGS)
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    # its warm-up update and PROFILE_ITERS timed ones: geometry 3, colour 1,
+    # class_bayesian 1
+    check_launches("profile", launches, PROFILE_ITERS + 1, {"scatter_add_streams": 5, "exact_march": 0})
+    check_shapes("profile", shapes, checked)
+
+    # one update of the profile's map on the card and on the CPU port from
+    # the same state (the first update grows the semantic layers on both)
+    cfg = profile.profile_config(PROFILE_POINTS)
+    rng = np.random.default_rng(123)
+    R = np.eye(3, dtype=np.float32)
+    t = np.array([0.0, 0.0, 0.6], np.float32)
+    em, cpu = ElevationMap(cfg, device="cuda"), ElevationMap(cfg, device="cpu")
+    first = profile.make_points(rng, PROFILE_POINTS)
+    em.input_pointcloud(first, profile.CHANNELS, R, t, 0.0, 0.0)
+    cpu.input_pointcloud(first, profile.CHANNELS, R, t, 0.0, 0.0)
+    em.move_to(np.array([0.01, 0.02, 0.01]), R)
+    cpu.state = state_from_numpy(state_to_numpy(em.state), "cpu")
+    pts = profile.make_points(rng, PROFILE_POINTS)
+    t = np.array([0.01, 0.02, 0.6], np.float32)
+    em.input_pointcloud(pts, profile.CHANNELS, R, t, 0.0, 0.0)
+    cpu.input_pointcloud(pts, profile.CHANNELS, R, t, 0.0, 0.0)
+    names = _semantic_names(em.cfg)
+    cmp_stats = _compare_layers("profile update", em.get_layers(names), cpu.get_layers(names), packed=("rgb",))
+    cmp_stats.update(_compare_layers(
+        "profile update", _state_layers(em.state, em.cfg), _state_layers(cpu.state, cpu.cfg),
+        packed=[f"id_max:{n}" for n in em.cfg.semantic_layers], sums=[f"sem_new:{n}" for n in em.cfg.semantic_layers],
+    ))
+    valid = em.get_layers(["is_valid"])["is_valid"] > 0.5
+    if valid.mean() < 0.2:
+        raise AssertionError(f"profile: implausible map, {valid.mean():.3f} of cells valid")
+    log("profile: " + json.dumps({"args": PROFILE_ARGS, "stages": table, "launches": launches,
+                                  "k1_shapes": sorted(shapes), "cpu_compare": cmp_stats}))
+    return table, launches, cmp_stats
+
+
 def profile_updates(em, rng, n_updates: int = 5, pose: int = 300, make_cloud=scene_cloud,
                     channels=("x", "y", "z")) -> dict:
     """Where one update's time goes: torch.profiler over back-to-back
@@ -1332,13 +1666,17 @@ def profile_calls(calls) -> dict:
 
 
 SEMANTIC_CASES = ("features3", "features8", "colour4", "colour3", "count1", "cube_class_max")
+PLANESEG_CASES = ("planeseg_moments", "planeseg_label_bad", "planeseg_batch_moments", "planeseg_batch_label_bad")
+PROFILE_CASES = ("profile_count", "profile_fusion", "profile_cube", "profile_class_bayesian", "profile_colour4")
 
 
 def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path_launches: dict) -> dict:
     """One entry per kernel. K1's numbers are those of one update's three
     launches at the main path's cloud size (error counting, fusion, cube),
     summed and, under ``cases``, each on its own together with the semantic
-    fusions' shapes, and its launches on the polar main path; K2's are those
+    fusions', plane segmentation's and the profile path's shapes, and its
+    launches on the polar main path; its ``max_abs_err`` is the largest of
+    every timed case. K2's are those
     of the gated march of n_main rays (the router's first choice) and its
     launches on the exact path. ``launches_by_path`` holds every driven
     path's count, each read after a run that began with the counts at 0.
@@ -1346,7 +1684,9 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path
     own time."""
     march = march_cases[(n_main, True)]
     shapes = [cases[(c, n_main)] for c in ("count", "fusion", "cube")]
-    listed = shapes + [cases[(c, n_main)] for c in SEMANTIC_CASES]
+    listed = (shapes + [cases[(c, n_main)] for c in SEMANTIC_CASES]
+              + [cases[(c, PLANESEG_N * PLANESEG_N)] for c in PLANESEG_CASES]
+              + [cases[(c, PROFILE_BUCKET)] for c in PROFILE_CASES])
     total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
     by_path = lambda name: {path: counts[name] for path, counts in path_launches.items()}  # noqa: E731
     return {
@@ -1418,12 +1758,17 @@ def main(argv=None) -> int:
     sem_map, mem_res, allf_res = timed("semantic", phase_semantic, cfg, regs)
     image_res = timed("image", phase_image, sem_map, regs)
     plugin_res = timed("plugins", phase_plugins, sem_map, regs)
+    checked = checked_shapes(cases)
+    planeseg_res = timed("planeseg", phase_planeseg, regs, checked)
+    profile_table, profile_launches, profile_cmp = timed("profile", phase_profile, regs, checked)
     log(f"total: {time.perf_counter() - t0:.1f} s")
     path_launches = {
         "polar": launches, "exact": exact_launches, "semantic_mem": mem_res["launches"],
         "semantic_all_fusions": allf_res["launches"],
         "image_shadow": image_res["shadow"]["launches"], "image_bresenham": image_res["bresenham"]["launches"],
         "plugins_updates": plugin_res["launches_updates"], "plugins_exports": plugin_res["launches_exports"],
+        "planeseg": planeseg_res["launches"], "planeseg_batch": planeseg_res["batch_launches"],
+        "profile": profile_launches,
     }
     line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS, path_launches)
     if args.json:
@@ -1431,7 +1776,8 @@ def main(argv=None) -> int:
             json.dump({
                 "card": smi, "kernels_line": line, "polar": main_res, "exact": exact_res,
                 "semantic_mem": mem_res, "semantic_all_fusions": allf_res, "image": image_res,
-                "plugins": plugin_res,
+                "plugins": plugin_res, "planeseg": planeseg_res,
+                "profile": {"stages": profile_table, "launches": profile_launches, "cpu_compare": profile_cmp},
                 "scatter_cases": list(cases.values()),
                 "march_cases": list(march_cases.values()) + list(fresh_cases.values()),
             }, f, indent=1)

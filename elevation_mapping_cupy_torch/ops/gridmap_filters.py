@@ -44,27 +44,41 @@ __all__ = [
     "project_to_map_with_margin",
     "estimate_gradient",
     "estimate_gradient_and_curvature",
+    "fixed_point",
 ]
 
-# the fixed-point loop of ``inpaint_min_values`` asks the device whether its
-# last round changed anything once per this many rounds (one read-back
-# each); rounds past the fixed point change nothing, so the result is the
-# fixed point whatever this is
+# ``fixed_point`` asks the device whether its last round changed anything
+# once per this many rounds (one read-back each); rounds past the fixed
+# point change nothing, so the result is the fixed point whatever this is
 FIXED_POINT_CHECK_EVERY = 8
 
 
+def fixed_point(step, x: torch.Tensor, cap: int) -> Tuple[torch.Tensor, int]:
+    """Apply ``step`` to ``x`` until a round changes nothing, at most ``cap``
+    rounds: the JAX package's ``while_loop`` as a host loop. Returns the
+    result and the rounds run."""
+    rounds = 0
+    while rounds < cap:
+        for _ in range(min(FIXED_POINT_CHECK_EVERY, cap - rounds)):
+            prev, x = x, step(x)
+            rounds += 1
+        if not bool(torch.any(x != prev)):
+            break
+    return x, rounds
+
+
 def _shift_fill(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
-    """x shifted by (dy, dx) along its two axes, the revealed rows and
-    columns set to ``fill`` (no wraparound)."""
-    out = torch.roll(x, (dy, dx), dims=(0, 1))
+    """x shifted by (dy, dx) along its last two axes, the revealed rows and
+    columns set to ``fill`` (no wraparound). Leading axes are a batch."""
+    out = torch.roll(x, (dy, dx), dims=(-2, -1))
     if dy > 0:
-        out[:dy] = fill
+        out[..., :dy, :] = fill
     elif dy < 0:
-        out[dy:] = fill
+        out[..., dy:, :] = fill
     if dx > 0:
-        out[:, :dx] = fill
+        out[..., :dx] = fill
     elif dx < 0:
-        out[:, dx:] = fill
+        out[..., dx:] = fill
     return out
 
 
@@ -74,8 +88,11 @@ def _shift_nan(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
 
 
 def _pad_edge(x: torch.Tensor, top: int, bottom: int, left: int, right: int) -> torch.Tensor:
-    """numpy's ``pad(mode="edge")`` of a 2-D tensor."""
-    return F.pad(x[None, None], (left, right, top, bottom), mode="replicate")[0, 0]
+    """numpy's ``pad(mode="edge")`` of the last two axes of an (..., H, W)
+    tensor."""
+    H, W = x.shape[-2:]
+    out = F.pad(x.reshape(-1, 1, H, W), (left, right, top, bottom), mode="replicate")
+    return out.reshape(*x.shape[:-2], H + top + bottom, W + left + right)
 
 
 def inpaint_min_values(h: torch.Tensor, iterations: int = 0) -> torch.Tensor:
@@ -99,13 +116,7 @@ def inpaint_min_values(h: torch.Tensor, iterations: int = 0) -> torch.Tensor:
         for _ in range(iterations):
             work = round_fn(work)
     else:
-        remaining = 1 + h.shape[0] * h.shape[1]
-        while remaining > 0:
-            for _ in range(min(FIXED_POINT_CHECK_EVERY, remaining)):
-                prev, work = work, round_fn(work)
-                remaining -= 1
-            if not bool(torch.any(work != prev)):
-                break
+        work, _ = fixed_point(round_fn, work, 1 + h.shape[-2] * h.shape[-1])
     return torch.where(torch.isinf(work), math.nan, work)
 
 
@@ -129,11 +140,14 @@ def inpaint_bilinear(h: torch.Tensor, iterations: int = 32) -> torch.Tensor:
 
 
 def resample(h: torch.Tensor, out_shape: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resample (inpainting.cpp:244-289 / cv::resize INTER_LINEAR:
-    half-pixel centers, no antialiasing on downscale)."""
-    return F.interpolate(
-        h[None, None], size=tuple(out_shape), mode="bilinear", align_corners=False, antialias=False
-    )[0, 0]
+    """Bilinear resample of the last two axes (inpainting.cpp:244-289 /
+    cv::resize INTER_LINEAR: half-pixel centers, no antialiasing on
+    downscale)."""
+    H, W = h.shape[-2:]
+    out = F.interpolate(
+        h.reshape(-1, 1, H, W), size=tuple(out_shape), mode="bilinear", align_corners=False, antialias=False
+    )
+    return out.reshape(*h.shape[:-2], *out_shape)
 
 
 def median_filter(h: torch.Tensor, size: int = 3) -> torch.Tensor:
@@ -200,21 +214,21 @@ def gaussian_blur(h: torch.Tensor, size: int = 5, sigma: float = 1.0) -> torch.T
 
 
 def shifted_window_stack(h: torch.Tensor, size: int) -> torch.Tensor:
-    """(k*k, H, W) neighborhood stack with the grid_map_filters_rsl border
-    rule: the kxk window is CLAMPED to lie fully inside the map, i.e. near
-    borders it SHIFTS instead of truncating/replicating
-    (processing.cpp:36-50 — cornerId = clamp(id - half, 0, N - k)).
-    Entry (i*k+j) holds h[corner_r(r)+i, corner_c(c)+j]."""
-    H, W = h.shape
+    """(..., k*k, H, W) neighborhood stack of an (..., H, W) map with the
+    grid_map_filters_rsl border rule: the kxk window is CLAMPED to lie fully
+    inside the map, i.e. near borders it SHIFTS instead of
+    truncating/replicating (processing.cpp:36-50 — cornerId = clamp(id -
+    half, 0, N - k)). Entry (i*k+j) holds h[corner_r(r)+i, corner_c(c)+j]."""
+    H, W = h.shape[-2:]
     half = (size - 1) // 2
     cr = torch.clamp(torch.arange(H, device=h.device) - half, 0, H - size)
     cc = torch.clamp(torch.arange(W, device=h.device) - half, 0, W - size)
     planes = []
     for dy in range(size):
-        hr = h[cr + dy, :]
+        hr = h[..., cr + dy, :]
         for dx in range(size):
-            planes.append(hr[:, cc + dx])
-    return torch.stack(planes)
+            planes.append(hr[..., cc + dx])
+    return torch.stack(planes, dim=-3)
 
 
 def dilate(h: torch.Tensor, size: int = 3, inpaint: bool = False) -> torch.Tensor:
@@ -222,7 +236,7 @@ def dilate(h: torch.Tensor, size: int = 3, inpaint: bool = False) -> torch.Tenso
     (processing.cpp:15-60): all-NaN windows fall back to the centre
     value; NaN centres stay NaN unless inpaint=True."""
     stack = shifted_window_stack(h, size)
-    mx = torch.amax(torch.where(torch.isfinite(stack), stack, -math.inf), dim=0)
+    mx = torch.amax(torch.where(torch.isfinite(stack), stack, -math.inf), dim=-3)
     out = torch.where(torch.isfinite(mx), mx, h)
     if not inpaint:
         out = torch.where(torch.isfinite(h), out, math.nan)
@@ -232,7 +246,7 @@ def dilate(h: torch.Tensor, size: int = 3, inpaint: bool = False) -> torch.Tenso
 def erode(h: torch.Tensor, size: int = 3, inpaint: bool = False) -> torch.Tensor:
     """Min-of-finites erosion, shifted-window border rule (processing.cpp:62-107)."""
     stack = shifted_window_stack(h, size)
-    mn = torch.amin(torch.where(torch.isfinite(stack), stack, math.inf), dim=0)
+    mn = torch.amin(torch.where(torch.isfinite(stack), stack, math.inf), dim=-3)
     out = torch.where(torch.isfinite(mn), mn, h)
     if not inpaint:
         out = torch.where(torch.isfinite(h), out, math.nan)

@@ -22,6 +22,8 @@ __all__ = [
     "scatter_add_streams_2d",
     "scatter_min",
     "scatter_max",
+    "scatter_or",
+    "smallest_unique",
 ]
 
 
@@ -85,3 +87,26 @@ def scatter_max(
     safe_idx, safe_val = _masked(idx, values, mask, init)
     out = torch.full((n_cells,), init, dtype=values.dtype, device=values.device)
     return out.scatter_reduce(0, safe_idx.to(torch.int64), safe_val, reduce="amax", include_self=True)
+
+
+def scatter_or(n_cells: int, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Boolean "any point landed here" per cell (``ops/scatter.py:172-174``
+    of the JAX package: a :func:`scatter_max` of the mask)."""
+    return scatter_max(n_cells, idx, mask.to(torch.float32), mask, 0.0) > 0.5
+
+
+def smallest_unique(cand: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """The ``size`` smallest distinct values along the last axis of the
+    integer tensor ``cand``, in ascending order, padded with ``fill`` (which
+    must not be smaller than any value): what ``jnp.unique(row, size=size,
+    fill_value=fill)`` returns for each row. Leading axes are a batch. Static
+    shapes throughout (sort, rank by ``cumsum``, ``scatter_reduce(amin)``),
+    so nothing is read back to the host."""
+    s, _ = torch.sort(cand, dim=-1)
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[..., 1:] = s[..., 1:] != s[..., :-1]
+    # rank of each element's value among the distinct values; equal values
+    # share a rank, so amin over a rank's elements is that value
+    rank = torch.clamp(torch.cumsum(first, -1) - 1, max=size)
+    out = torch.full((*cand.shape[:-1], size + 1), fill, dtype=cand.dtype, device=cand.device)
+    return out.scatter_reduce(-1, rank, s, reduce="amin", include_self=True)[..., :size]

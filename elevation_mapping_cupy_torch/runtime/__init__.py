@@ -1,1 +1,1 @@
-"""Host-side runtime of the PyTorch port: log replay."""
+"""Host-side runtime of the PyTorch port: log replay and fault injection."""

@@ -244,21 +244,6 @@ def fuse_class_bayesian(
     return up._replace(semantic=sem, sem_new=new)
 
 
-def _smallest_unique(cand: torch.Tensor, size: int) -> torch.Tensor:
-    """The ``size`` smallest distinct values of ``cand`` (int64, unsigned
-    32-bit values) in ascending order, padded with ``UNIQUE_FILL``: what
-    ``jnp.unique(cand, size=size, fill_value=0xFFFFFFFF)`` returns. Static
-    shapes throughout, so nothing is read back to the host."""
-    s, _ = torch.sort(cand)
-    first = torch.ones_like(s, dtype=torch.bool)
-    first[1:] = s[1:] != s[:-1]
-    # rank of each element's value among the distinct values; equal values
-    # share a rank, so amin over a rank's elements is that value
-    rank = torch.clamp(torch.cumsum(first, 0) - 1, max=size)
-    out = torch.full((size + 1,), UNIQUE_FILL, dtype=torch.int64, device=cand.device)
-    return out.scatter_reduce(0, rank, s, reduce="amin", include_self=True)[:size]
-
-
 def fuse_class_max(
     up: SemanticUpdate,
     assoc: PointAssociation,
@@ -291,7 +276,7 @@ def fuse_class_max(
     mask = assoc.valid & assoc.inside
 
     existing = up.id_max[lays].reshape(-1)
-    uniq = _smallest_unique(torch.cat([cls, existing]), max_classes)
+    uniq = scatter.smallest_unique(torch.cat([cls, existing]), max_classes, UNIQUE_FILL)
 
     # bucket each (point, layer) class id; ids that fell off the static
     # unique (> max_classes distinct) would searchsorted onto a different

@@ -236,7 +236,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) >= 16
     rel = {os.path.relpath(p, PKG) for p in files}
     for sub in ("semantic/__init__.py", "semantic/fusions.py", "semantic/update.py", "ops/image.py",
-                "plugins/builtin.py", "plugins/manager.py", "ops/polygon.py", "ops/gridmap_filters.py", "utils/hull.py"):
+                "plugins/builtin.py", "plugins/manager.py", "ops/polygon.py", "ops/gridmap_filters.py", "utils/hull.py",
+                "planeseg/__init__.py", "planeseg/extract.py", "planeseg/postprocess.py", "planeseg/pipeline.py",
+                "planeseg/contour.py", "planeseg/ransac.py", "planeseg/draw.py", "utils/map_io.py",
+                "runtime/faults.py", "profile.py"):
         assert sub.replace("/", os.sep) in rel, f"the scan does not reach {sub}"
     for path in files:
         assert not _forbidden_imports(path), f"{path} imports {_forbidden_imports(path)}"
@@ -291,3 +294,17 @@ def test_chip_smoke_semantic_config_is_the_mem_yaml():
     allf = lit.replace(pointcloud_channel_fusions=chip_smoke.ALL_FUSIONS_TABLE)
     assert [allf.fusion_for_channel(c) for c in chip_smoke.ALL_FUSIONS_CHANNELS] == [
         "average", "bayesian_inference", "class_bayesian", "class_max", "class_max"]
+
+
+def test_profile_entry_point_on_cpu(capsys, tmp_path):
+    """``python -m elevation_mapping_cupy_torch.profile --cpu``: the JAX
+    package's stages and table, and a Chrome trace with --trace."""
+    from elevation_mapping_cupy_torch import profile
+
+    torch.set_num_threads(2)
+    table = profile.main(["--cpu", "--iters", "2", "--points", "2000", "--trace", str(tmp_path)])
+    assert list(table) == ["input_pointcloud", "update_normal", "move_to", "publish", "polygon"]
+    assert all(v["mean_ms"] > 0 and v["p99_ms"] >= 0 for v in table.values())
+    out = capsys.readouterr().out
+    assert "2 iterations x 2000 points on cpu" in out and "mean_ms" in out
+    assert (tmp_path / "trace.json").stat().st_size > 0

@@ -1,6 +1,6 @@
 """The PyTorch port on a CUDA card: kernels K1 and K2 and the updates through
-them, the semantic fusions, the image path, and post-processing (stencil
-filters, plugins, polygon mask, grid-map filters).
+them, the semantic fusions, the image path, post-processing (stencil
+filters, plugins, polygon mask, grid-map filters) and plane segmentation.
 
 Every test here needs the card and is marked ``cuda``; without one it
 skips. The file imports no JAX, so it also runs where JAX is not
@@ -18,7 +18,7 @@ import torch
 import chip_smoke
 from elevation_mapping_cupy_torch import MapConfig, core
 from elevation_mapping_cupy_torch.mapper import ElevationMap
-from elevation_mapping_cupy_torch.ops import cuda_march, cuda_scatter, raycast
+from elevation_mapping_cupy_torch.ops import cuda_march, cuda_scatter, raycast, scatter
 
 pytestmark = pytest.mark.cuda
 
@@ -362,8 +362,8 @@ def test_packing_helpers_on_card_equal_cpu(card):
     assert np.array_equal(_bits(F.uint_to_rgb_float(*rgb)), _bits(colour))
     # the 32 smallest distinct ids in unsigned order
     cand = torch.from_numpy(rng.choice(np.array([0, 7, 9, 0x80000001, 0xFFFFFFFE, 70000]), 5000))
-    assert F._smallest_unique(cand.to(card), 4).tolist() == [0, 7, 9, 70000]
-    assert F._smallest_unique(cand.to(card), 8).tolist() == [0, 7, 9, 70000, 0x80000001, 0xFFFFFFFE] + [0xFFFFFFFF] * 2
+    assert scatter.smallest_unique(cand.to(card), 4, F.UNIQUE_FILL).tolist() == [0, 7, 9, 70000]
+    assert scatter.smallest_unique(cand.to(card), 8, F.UNIQUE_FILL).tolist() == [0, 7, 9, 70000, 0x80000001, 0xFFFFFFFE] + [0xFFFFFFFF] * 2
 
 
 SEMANTIC_TABLE = (
@@ -555,3 +555,87 @@ def test_gridmap_filters_on_card_match_cpu(card):
         got, want = fn(hg).cpu().numpy(), fn(hc).numpy()
         assert np.array_equal(np.isnan(got), np.isnan(want)), name
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# plane segmentation
+# ---------------------------------------------------------------------------
+
+def _planeseg_scene():
+    return chip_smoke.planeseg_scene(np.random.default_rng(0))
+
+
+@pytest.mark.parametrize("b, k", [(1, 10), (1, 1), (16, 10)])
+def test_kernel_at_the_planeseg_shapes(card, b, k):
+    """K1 at extract_planes' shapes (10 moment streams or the bad-cell
+    count over 65 bins, ~70 % of the cells on one bin) against its plain
+    version: counts bit for bit, values within 2e-4 relative."""
+    labels = torch.from_numpy(chip_smoke.planeseg_labels(_planeseg_scene())).reshape(1, -1).to(torch.int32)
+    rng = np.random.default_rng(40 + b + k)
+    n = labels.shape[1]
+    idx = labels.expand(b, n).contiguous().to(card)
+    mask = torch.from_numpy(rng.random((b, n)) > 0.02).to(card)
+    vals = rng.normal(-2.0, 1.0, (b, k, n)).astype(np.float32)
+    if k == 1:
+        vals = (rng.random((b, 1, n)) < 0.1).astype(np.float32)
+    vals = torch.from_numpy(vals).to(card)
+    assert cuda_scatter.launch_plan(b, k, n, 65).path == "private"
+    got = cuda_scatter.scatter_add_streams(idx, mask, vals, 65)
+    want = cuda_scatter.scatter_add_streams_reference(idx, mask, vals, 65)
+    torch.cuda.synchronize()
+    if k == 1:
+        assert torch.equal(got, want)
+    else:
+        rel = ((got - want).abs() / want.abs().clamp(min=1.0)).max()
+        assert float(rel) <= 2e-4
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_connected_components_on_card_matches_cpu(card, connectivity):
+    """Labels bit for bit, a batch of masks and the round cap included."""
+    from elevation_mapping_cupy_torch.planeseg import extract as E
+
+    rng = np.random.default_rng(41)
+    masks = torch.from_numpy(rng.random((3, 90, 70)) < 0.6)
+    for max_iters in (0, 2):
+        got = E.connected_components(masks.to(card), connectivity, max_iters)
+        want = E.connected_components(masks, connectivity, max_iters)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_extract_planes_on_card_matches_cpu(card):
+    """bench_planeseg's scene: labels, plane_valid and needs_refine equal,
+    plane normals and supports within 1e-5, two K1 launches."""
+    from elevation_mapping_cupy_torch.planeseg import extract as E
+
+    h = E.preprocess(torch.from_numpy(_planeseg_scene()))
+    params = E.PlaneSegParams()
+    before = cuda_scatter.KERNEL.launches
+    got = E.extract_planes(h.to(card), 0.04, params)
+    torch.cuda.synchronize()
+    assert cuda_scatter.KERNEL.launches == before + 2
+    want = E.extract_planes(h, 0.04, params)
+    for name in ("labels", "plane_valid", "needs_refine"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    used = want.plane_valid | want.needs_refine
+    assert int(used.sum()) >= 3
+    torch.testing.assert_close(got.plane_normals.cpu()[used], want.plane_normals[used], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.plane_support.cpu()[used], want.plane_support[used], rtol=0, atol=1e-5)
+
+
+def test_planeseg_pipeline_on_card_matches_cpu(card):
+    """update on the card against the CPU port (labels equal, layers within
+    1e-5), and update_batch against update on the card."""
+    from elevation_mapping_cupy_torch.planeseg import PlaneDecompositionPipeline
+
+    h = _planeseg_scene()
+    got = PlaneDecompositionPipeline(0.04, device="cuda").update(h)
+    want = PlaneDecompositionPipeline(0.04, device="cpu").update(h)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    assert len(got.regions) == len(want.regions) >= 3
+    for name in ("filtered_map", "elevation", "smooth_planar"):
+        np.testing.assert_allclose(getattr(got, name), getattr(want, name), rtol=0, atol=1e-5, err_msg=name)
+    maps = np.stack([h, h[::-1].copy()])
+    pipe = PlaneDecompositionPipeline(0.04, device="cuda")
+    for b, t in enumerate(pipe.update_batch(maps)):
+        np.testing.assert_array_equal(t.labels, pipe.update(maps[b]).labels)

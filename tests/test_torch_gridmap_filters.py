@@ -71,6 +71,14 @@ def test_inpaint_min_values_fixed_point_needs_many_rounds():
     _close(gf.inpaint_min_values(_t(h)), jgf.inpaint_min_values(jnp.asarray(h)), atol=0)
 
 
+@pytest.mark.parametrize("cap, want", [(0, (0, 0)), (3, (3, 3)), (6, (5, 6)), (100, (5, 8))])
+def test_fixed_point_stops_at_the_fixed_point_or_the_cap(cap, want):
+    """``step`` saturates at 5: the loop returns the capped value or the
+    fixed point, having run up to the next device check past it."""
+    x, rounds = gf.fixed_point(lambda v: torch.clamp(v + 1, max=5), torch.zeros(3), cap)
+    assert (float(x[0]), rounds) == want
+
+
 @pytest.mark.parametrize("iterations", [1, 32])
 def test_inpaint_bilinear_matches_jax(iterations):
     h = _map(3)
@@ -217,3 +225,30 @@ def test_dilate_matches_the_numpy_oracle(size):
     ref = oracle.apply_kernel_function(h, size, oracle._max_of_finites)
     ref = np.where(np.isnan(h), np.nan, np.where(np.isnan(ref), h, ref))
     np.testing.assert_allclose(gf.dilate(_t(h), size).numpy(), ref, atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("name", ["shift_fill", "pad_edge", "inpaint", "resample", "shifted_window_stack", "dilate"])
+def test_batched_helpers_equal_per_map(name):
+    """The helpers that take a (B, H, W) batch: each map of the batch comes
+    out as it does alone (inpainting runs until every map is at its fixed
+    point, and its cap comes from H and W, not from the batch)."""
+    maps = np.stack([_map(s) for s in range(3)])
+    maps[1] = np.where(np.isnan(maps[1]), maps[1], maps[1] + 1.0)
+    maps[2, 2:17, 1:20] = np.nan  # a large hole takes more rounds
+    fns = {
+        "shift_fill": lambda x: gf._shift_fill(x, -2, 3, 7.0),
+        "pad_edge": lambda x: gf._pad_edge(x, 1, 2, 3, 0),
+        "inpaint": gf.inpaint_min_values,
+        "resample": lambda x: gf.resample(torch.nan_to_num(x), (9, 30)),
+        "shifted_window_stack": lambda x: gf.shifted_window_stack(x, 5),
+        "dilate": lambda x: gf.dilate(x, 3, True),
+    }
+    fn = fns[name]
+    batched = fn(_t(maps))
+    for b in range(maps.shape[0]):
+        alone = fn(_t(maps[b]))
+        np.testing.assert_array_equal(batched[b].numpy(), alone.numpy())
+    if name in ("inpaint", "shifted_window_stack"):
+        want = {"inpaint": jgf.inpaint_min_values, "shifted_window_stack": lambda x: jgf.shifted_window_stack(x, 5)}[name]
+        for b in range(maps.shape[0]):
+            _close(batched[b], want(jnp.asarray(maps[b])), atol=0)

@@ -186,3 +186,30 @@ def test_wrapper_checks_and_cpu_path_does_not_count():
     assert cuda_scatter.KERNEL.source == "scatter_add.cu"
     assert cuda_scatter.KERNEL.name in kernels.registered_kernels()
 
+
+
+def test_scatter_or_matches_jax(rng):
+    """scatter_or ("any point landed here") against the JAX package's."""
+    idx = rng.integers(0, 300, 2000).astype(np.int32)
+    mask = rng.random(2000) > 0.6
+    want = jscatter.scatter_or(300, jnp.asarray(idx), jnp.asarray(mask))
+    got = tscatter.scatter_or(300, torch.from_numpy(idx), torch.from_numpy(mask))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert 0 < int(got.sum()) < 300
+
+
+@pytest.mark.parametrize("fill", [2**31 - 1, 5000])
+def test_smallest_unique_batched_rows(rng, fill):
+    """The static unique over a batch: each row is jnp.unique of that row
+    with a size and a fill, whatever the other rows hold."""
+    cand = rng.integers(0, 50, (4, 300))
+    cand[1, :] = 7                  # one distinct value
+    cand[2] = rng.integers(0, 4000, 300)  # more distinct values than the size
+    size = 40
+    got = tscatter.smallest_unique(torch.from_numpy(cand), size, fill)
+    assert got.shape == (4, size)
+    for b in range(4):
+        want = jnp.unique(jnp.asarray(cand[b]), size=size, fill_value=fill)
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got[b].numpy(), tscatter.smallest_unique(torch.from_numpy(cand[b]), size, fill).numpy())

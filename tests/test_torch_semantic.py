@@ -127,7 +127,7 @@ def test_smallest_unique_is_jnp_unique_with_a_size(distinct, size):
     pool = np.concatenate([rng.integers(0, 1 << 16, max(distinct - 2, 0)), [0x80000001, 0xFFFFFFFE][: min(distinct, 2)]])
     cand = rng.choice(pool, 3000).astype(np.uint32) if distinct else np.zeros(0, np.uint32)
     want = jnp.unique(jnp.asarray(cand), size=size, fill_value=jnp.uint32(0xFFFFFFFF))
-    got = F._smallest_unique(torch.from_numpy(cand.astype(np.int64)), size)
+    got = scatter.smallest_unique(torch.from_numpy(cand.astype(np.int64)), size, F.UNIQUE_FILL)
     np.testing.assert_array_equal(got.numpy().astype(np.uint32), np.asarray(want))
 
 
