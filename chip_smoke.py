@@ -17,8 +17,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              bench_planeseg's 40804 labelled cells over 65 bins, one map
              and a batch of 16) and the profile entry point's (the default
              MapConfig: 100000 points padded to 131072, its map and its
-             polar cube's 4718592 bins, colour and class_bayesian), with
-             the call's time
+             polar cube's 4718592 bins, colour and class_bayesian) and the
+             batched phase's (its three launches at B = 1, 16 and 64 maps
+             of 100000 points), with the call's time
              (CUDA events around the wrapper), the device's own time for it
              (torch.profiler), the plain version's, one PyTorch library
              call's, and the bound (bytes over 3.35 TB/s).
@@ -108,6 +109,26 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              5 K1 launches per update (its warm-up included) at shapes the
              kernels phase checked, then one update of that map on the card
              compared with the CPU port from the same state.
+13. batched - ``parallel.batched_update`` (bench.py::bench_maps' path) at the
+             default ``MapConfig`` with the shipped CNN weights: B = 64 maps
+             of 100000 points each from ``runtime.datagen.make_batch_clouds``
+             on the card (seed 0), one warm-up and 10 steps, then the same
+             at B = 1 and B = 16: step ms (median, p90), maps/s, device ms,
+             operations and busy share per step (torch.profiler), peak
+             device memory, and K1 launched 3 times per step whatever B is,
+             only at shapes the kernels phase checked (it times K1 at the
+             batched shapes too). At B = 64: maps 0 and 63 equal their own
+             per-map ``update_pointcloud`` on the card (1e-5 on 99.9 % of
+             cells), maps 0-3 rerun as a B = 4 batch on the CPU port equal
+             the card's (1e-4 on 99.9 %), ``batched_move_to`` with per-map
+             positions equals per-map ``move_to`` bit for bit, and
+             ``batched_input_image`` at B = 4 equals per-map ``input_image``
+             in both occlusion modes. Then NCCL on the one card: a
+             one-process group (``parallel.distributed.initialize`` on a free
+             local port), a (1, 1) pod mesh, ``shard_states``, a batched
+             step fed through ``HostFeed``, ``batch_stats`` through NCCL's
+             all-reduce and a checkpoint round trip bit for bit; the group
+             is torn down before the last line.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
@@ -202,6 +223,16 @@ PROFILE_ITERS = 10
 PROFILE_ARGS = ["--iters", str(PROFILE_ITERS), "--points", str(PROFILE_POINTS)]
 # the mapper pads a cloud to a power of two (mapper.py::_bucket)
 PROFILE_BUCKET = max(1024, 1 << (PROFILE_POINTS - 1).bit_length())
+# the batched phase: bench.py::bench_maps' 64 maps of 100000 points, 10 steps
+BATCH_SIZES = (64, 1, 16)
+BATCH_POINTS = 100_000
+BATCH_STEPS = 10
+# card batch against per-map updates on the card (tests/test_parallel.py's
+# tolerance), on this share of cells
+BATCH_TOL = 1e-5
+BATCH_CPU_MAPS = 4
+BATCH_IMAGE_MAPS = 4
+BATCH_IMAGE_SHAPE = (240, 320)
 MEM_CHANNELS = ("rgb", "grass", "tree", "person")
 ALL_FUSIONS_TABLE = (
     ("f_avg", "average"), ("f_bayes", "bayesian_inference"), ("f_dir", "class_bayesian"), ("max_.*", "class_max"),
@@ -546,7 +577,7 @@ def check_scatter_case(rng, label: str, b: int, n: int, n_cells: int, exact, tim
     n_active = int(mask.sum())
     bytes_moved = b * n * (4 + 1) + n_active * 4 * k + b * k * n_cells * 4
     res["bound_ms"] = bytes_moved / HBM_BYTES_PER_S * 1e3
-    iters = 10 if n_cells > 1 << 22 else 50
+    iters = 10 if b * n_cells > 1 << 22 else 50
     res["kernel_ms"] = _events_ms(lambda: cs.scatter_add_streams(idx, mask, vals, n_cells), iters)
     res["device_ms"], res["device_ops_ms"] = _device_ms(lambda: cs.scatter_add_streams(idx, mask, vals, n_cells), iters)
     res["share_of_bound"] = res["bound_ms"] / res["device_ms"]
@@ -644,6 +675,17 @@ def phase_kernels(cfg):
     cases[("profile_colour4", n)] = check_scatter_case(
         rng, f"profile colour count+rgb K=4 N={n} ({real} real)", 1, n, pcells, (True,) * 4, int_max=255, n_real=real
     )
+    # the batched phase's three launches per step (parallel.batched_update
+    # at the default MapConfig, BATCH_POINTS unpadded points a map) at each
+    # of its batch sizes: the whole batch in one launch
+    n = BATCH_POINTS
+    for b in BATCH_SIZES:
+        cases[(f"batch{b}_count", n)] = check_scatter_case(
+            rng, f"batched B={b} error counting N={n}", b, n, pcells, (True, True))
+        cases[(f"batch{b}_fusion", n)] = check_scatter_case(
+            rng, f"batched B={b} point fusion N={n}", b, n, pcells, (False, False, True, True))
+        cases[(f"batch{b}_cube", n)] = check_scatter_case(
+            rng, f"batched B={b} polar cube N={n} bins={pbins}", b, n, pbins, (True, False))
     for (kind, n), res in cases.items():
         want = "global" if "cube" in kind else "private"
         if res["path"] != want:
@@ -1624,6 +1666,229 @@ def phase_profile(kernel_regs, checked: set):
     return table, launches, cmp_stats
 
 
+# ---------------------------------------------------------------------------
+# batched multi-map updates
+# ---------------------------------------------------------------------------
+
+def _share_within(tag: str, got, want, tol: float, min_share: float, packed=()) -> dict:
+    """Per field of two states (NumPy dicts), the share of entries within
+    ``tol`` (bit for bit for ``packed``); fails below ``min_share``."""
+    stats = {}
+    for name in want:
+        a, b = got[name], want[name]
+        if name in packed:
+            close = a.view(np.uint32) == b.view(np.uint32) if a.dtype == np.float32 else a == b
+        else:
+            close = np.abs(a.astype(np.float64) - b.astype(np.float64)) <= tol
+        share = float(close.mean()) if close.size else 1.0
+        stats[name] = {"share_within": share,
+                       "max_abs": float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.size else 0.0}
+        if not share >= min_share:
+            raise AssertionError(f"{tag}: {name}: {share:.5f} of entries within {tol} (need {min_share})")
+    return stats
+
+
+def batch_inputs(b: int, cfg, seed: int = 0):
+    """bench_maps' inputs on the card: ``b`` terrains and clouds from
+    ``make_batch_clouds`` (seed ``seed``), all points real, identity
+    rotations, no pose noise."""
+    from elevation_mapping_cupy_torch.runtime import datagen
+
+    pts, t, _ = datagen.make_batch_clouds(datagen.make_generator(seed, "cuda"), b, cfg.cell_n, cfg.resolution,
+                                          BATCH_POINTS)
+    mask = torch.ones((b, BATCH_POINTS), dtype=torch.bool, device="cuda")
+    R = torch.eye(3, device="cuda").expand(b, 3, 3).contiguous()
+    z = torch.zeros(b, device="cuda")
+    return pts, mask, R, t, z
+
+
+def drive_batch(b: int, cfg, weights, kernel_regs, checked: set) -> tuple:
+    """One warm-up and BATCH_STEPS timed steps of ``b`` maps; returns the
+    numbers, the state before the last step and the last step's inputs."""
+    from elevation_mapping_cupy_torch.parallel import batched_update, init_batch
+
+    inputs = batch_inputs(b, cfg)
+    states = init_batch(cfg, b, "cuda")
+    states = batched_update(states, *inputs, inputs[-1], weights, cfg)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    lat = []
+    with k1_shapes() as shapes:
+        for _ in range(BATCH_STEPS):
+            before = states
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states = batched_update(states, *inputs, inputs[-1], weights, cfg)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+    launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(f"batched B={b}", launches, BATCH_STEPS, {"scatter_add_streams": 3, "exact_march": 0})
+    check_shapes(f"batched B={b}", shapes, checked)
+    valid = states.layers[:, 2] > 0.5
+    share = float(valid.float().mean())
+    if not (0.02 < share < 0.9) or not bool(torch.isfinite(states.layers[:, 0][valid]).all()):
+        raise AssertionError(f"batched B={b}: implausible maps, {share:.4f} of cells valid")
+    ms = np.array(lat) * 1e3
+    st = states
+    prof = profile_calls([lambda: batched_update(st, *inputs, inputs[-1], weights, cfg)] * 3)
+    res = {
+        "B": b, "points_per_map": BATCH_POINTS, "steps": BATCH_STEPS,
+        "step_ms_median": float(np.median(ms)), "step_ms_p90": float(np.percentile(ms, 90)),
+        "step_ms": ms.tolist(), "maps_per_s": b / float(np.median(ms)) * 1e3,
+        "points_per_s": b * BATCH_POINTS / float(np.median(ms)) * 1e3,
+        "device_ms_per_step": prof["device_ms_per_update"],
+        "device_ops_per_step": prof["device_ops_per_update"],
+        "device_busy_share_of_median_step": prof["device_ms_per_update"] / float(np.median(ms)),
+        "top_device_ms_per_step": prof["top_device_ms_per_update"],
+        "peak_memory_bytes": int(peak), "launches": launches, "k1_shapes": sorted(shapes), "valid_share": share,
+    }
+    log(f"batched B={b}: " + json.dumps(res))
+    return res, before, states, inputs
+
+
+def _batch_image_case(states, cfg, rng):
+    """BATCH_IMAGE_MAPS maps of ``states`` with rgb and mask layers and
+    every cell valid (the heights are the batch's), one image each from a
+    camera looking down from 2 m near its map's centre, a little apart from
+    map to map."""
+    from elevation_mapping_cupy_torch.state import MapState
+
+    b = BATCH_IMAGE_MAPS
+    channels = ("rgb", "mask")
+    icfg = cfg.replace(semantic_layers=channels, image_channel_fusions=(
+        ("rgb", "color"), ("mask", "exponential"), ("default", "exponential")))
+    n = cfg.cell_n
+    sem = lambda dt: torch.zeros((b, 2, n, n), dtype=dt, device="cuda")  # noqa: E731
+    maps = MapState(*(x[:b].clone() for x in states))._replace(
+        semantic=sem(torch.float32), sem_new=sem(torch.float32), id_max=sem(torch.int64))
+    maps.layers[:, 2] = 1.0
+    H, W = BATCH_IMAGE_SHAPE
+    img = np.concatenate([rng.integers(0, 256, (b, 3, H, W)), rng.random((b, 1, H, W))], axis=1).astype(np.float32)
+    f = 0.625 * W  # a 3.2 m x 2.4 m footprint from 2 m
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    R = np.array([[1.0, 0, 0], [0, -1, 0], [0, 0, -1]], np.float32)
+    centers = maps.center.cpu().numpy()
+    ts = np.stack([-R @ (centers[i] + np.array([0.3 * i, -0.2, 2.0], np.float32)) for i in range(b)])
+    dev = lambda x: torch.as_tensor(np.ascontiguousarray(x), device="cuda")  # noqa: E731
+    args = (dev(img), dev(np.broadcast_to(R, (b, 3, 3))), dev(ts), dev(np.broadcast_to(K, (b, 3, 3))),
+            torch.zeros((b, 5), device="cuda"))
+    return icfg, channels, maps, args
+
+
+def phase_batched(kernel_regs, checked: set):
+    """bench_maps' batched path on the card (module docstring, phase 13);
+    returns the numbers per batch size and the checks' results."""
+    from elevation_mapping_cupy_torch import MapConfig, core
+    from elevation_mapping_cupy_torch.nn.traversability import DEFAULT_WEIGHT_FILE, load_weights_npz
+    from elevation_mapping_cupy_torch.parallel import (
+        batch_stats, batched_input_image, batched_move_to, batched_update, checkpoint, distributed,
+        init_batch, shard_states,
+    )
+    from elevation_mapping_cupy_torch.state import state_to_numpy, take_map, MapState
+
+    cfg = MapConfig(max_points=BATCH_POINTS)  # bench_maps' config
+    weights = load_weights_npz(DEFAULT_WEIGHT_FILE).to("cuda")
+    out = {}
+    for b in BATCH_SIZES:
+        res, before, states, inputs = drive_batch(b, cfg, weights, kernel_regs, checked)
+        out[b] = res
+        if b != max(BATCH_SIZES):
+            continue
+        big, big_before, big_inputs = states, before, inputs
+    b = max(BATCH_SIZES)
+    states, before, inputs = big, big_before, big_inputs
+    checks = {}
+    # maps 0 and B-1 against their own per-map update on the card
+    for m in (0, b - 1):
+        pts, mask, R, t, _ = (x[m] for x in inputs)
+        single = core.update_pointcloud(take_map(before, m), pts, mask, R, t, 0.0, 0.0, weights, cfg)
+        checks[f"map{m}_vs_per_map"] = _share_within(
+            f"batched map {m} against its per-map update", state_to_numpy(take_map(states, m)),
+            state_to_numpy(single), BATCH_TOL, CMP_MIN_SHARE)
+    # a B = 4 batch from the same states on the CPU port
+    k = BATCH_CPU_MAPS
+    cpu_before = MapState(*(x[:k].cpu() for x in before))
+    cpu_weights = load_weights_npz(DEFAULT_WEIGHT_FILE)  # Module.to moves in place: a second copy
+    cpu_out = batched_update(cpu_before, *(x[:k].cpu() for x in inputs), inputs[-1][:k].cpu(), cpu_weights, cfg)
+    checks["cpu_b4"] = _share_within(
+        "batched B=4 card against the CPU port", state_to_numpy(MapState(*(x[:k] for x in states))),
+        state_to_numpy(cpu_out), CMP_ATOL, CMP_MIN_SHARE)
+    # per-map recentering
+    rng = np.random.default_rng(13)
+    positions = torch.from_numpy(rng.uniform(-0.6, 0.6, (b, 3)).astype(np.float32)).cuda()
+    Rs = torch.eye(3, device="cuda").expand(b, 3, 3).contiguous()
+    moved = batched_move_to(states, positions, Rs, cfg)
+    for m in range(b):
+        one = core.move_to(take_map(states, m), positions[m], Rs[m], cfg)
+        for name, x, y in zip(MapState._fields, take_map(moved, m), one):
+            if not torch.equal(x, y):
+                raise AssertionError(f"batched_move_to: map {m} field {name} differs from its per-map move_to")
+    checks["move_to"] = "equal bits, all maps"
+    # one image per map, both occlusion modes
+    icfg, channels, maps, args = _batch_image_case(states, cfg, rng)
+    for mode in ("shadow", "bresenham"):
+        mcfg = icfg.replace(image_occlusion_mode=mode)
+        got = batched_input_image(maps, *args, mcfg, channels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = batched_input_image(maps, *args, mcfg, channels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        per = []
+        for m in range(BATCH_IMAGE_MAPS):
+            one = core.input_image(take_map(maps, m), *(a[m] for a in args), mcfg, channels)
+            per.append(one.semantic)
+        want = torch.stack(per)
+        filled = float((got.semantic[:, 1] != 0).float().mean())
+        checks[f"image_{mode}"] = _share_within(
+            f"batched_input_image ({mode})", {"rgb": got.semantic[:, 0].cpu().numpy(), "mask": got.semantic[:, 1].cpu().numpy()},
+            {"rgb": want[:, 0].cpu().numpy(), "mask": want[:, 1].cpu().numpy()}, 1e-6, 1.0, packed=("rgb",))
+        checks[f"image_{mode}"]["filled_share"] = filled
+        checks[f"image_{mode}"]["ms"] = ms
+        if filled < 0.05:
+            raise AssertionError(f"batched_input_image ({mode}): only {filled:.4f} of cells fused")
+    # NCCL on the one card: a one-process group
+    import socket
+    import shutil
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    nb = min(16, b)
+    if not distributed.initialize(f"localhost:{port}", 1, 0):
+        raise AssertionError("distributed.initialize did not bring up the NCCL group")
+    ckpt_dir = tempfile.mkdtemp(prefix="batched_ckpt_")
+    try:
+        mesh = distributed.pod_mesh(("host", "chip"))
+        if tuple(mesh.mesh.shape) != (1, 1) or mesh.device_type != "cuda":
+            raise AssertionError(f"pod mesh {tuple(mesh.mesh.shape)} on {mesh.device_type}, expected (1, 1) on cuda")
+        local = shard_states(init_batch(cfg, nb, "cuda"), mesh, "host")
+        feed = distributed.HostFeed(nb, mesh, axis="host")
+        fed = [feed.globalize(x[:nb].cpu().numpy()) for x in inputs]
+        stepped = batched_update(local, *fed, fed[-1], weights, cfg)
+        stats = {k: float(v) for k, v in batch_stats(stepped).items()}
+        checkpoint.save(ckpt_dir, stepped)
+        back = checkpoint.restore(ckpt_dir, template=local)
+        for name, x, y in zip(MapState._fields, stepped, back):
+            if not (x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)):
+                raise AssertionError(f"checkpoint: field {name} did not round-trip bit for bit")
+        backend = torch.distributed.get_backend()
+    finally:
+        distributed.shutdown()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    plain = {k: float(v) for k, v in batch_stats(stepped).items()}
+    if stats != plain or not 0.0 < stats["frac_valid_mean"] < 1.0:
+        raise AssertionError(f"batch_stats through NCCL {stats} against no group {plain}")
+    checks["nccl"] = {"backend": backend, "mesh": [1, 1], "stats": stats, "checkpoint": "equal bits",
+                      "group_torn_down": not torch.distributed.is_initialized()}
+    res = {"per_batch": {str(k): v for k, v in out.items()}, "checks": checks}
+    log("batched checks: " + json.dumps(checks))
+    return res
+
+
 def profile_updates(em, rng, n_updates: int = 5, pose: int = 300, make_cloud=scene_cloud,
                     channels=("x", "y", "z")) -> dict:
     """Where one update's time goes: torch.profiler over back-to-back
@@ -1668,14 +1933,15 @@ def profile_calls(calls) -> dict:
 SEMANTIC_CASES = ("features3", "features8", "colour4", "colour3", "count1", "cube_class_max")
 PLANESEG_CASES = ("planeseg_moments", "planeseg_label_bad", "planeseg_batch_moments", "planeseg_batch_label_bad")
 PROFILE_CASES = ("profile_count", "profile_fusion", "profile_cube", "profile_class_bayesian", "profile_colour4")
+BATCH_CASES = tuple(f"batch{b}_{kind}" for b in BATCH_SIZES for kind in ("count", "fusion", "cube"))
 
 
 def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path_launches: dict) -> dict:
     """One entry per kernel. K1's numbers are those of one update's three
     launches at the main path's cloud size (error counting, fusion, cube),
     summed and, under ``cases``, each on its own together with the semantic
-    fusions', plane segmentation's and the profile path's shapes, and its
-    launches on the polar main path; its ``max_abs_err`` is the largest of
+    fusions', plane segmentation's, the profile path's and the batched
+    phase's shapes, and its launches on the polar main path; its ``max_abs_err`` is the largest of
     every timed case. K2's are those
     of the gated march of n_main rays (the router's first choice) and its
     launches on the exact path. ``launches_by_path`` holds every driven
@@ -1686,7 +1952,8 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path
     shapes = [cases[(c, n_main)] for c in ("count", "fusion", "cube")]
     listed = (shapes + [cases[(c, n_main)] for c in SEMANTIC_CASES]
               + [cases[(c, PLANESEG_N * PLANESEG_N)] for c in PLANESEG_CASES]
-              + [cases[(c, PROFILE_BUCKET)] for c in PROFILE_CASES])
+              + [cases[(c, PROFILE_BUCKET)] for c in PROFILE_CASES]
+              + [cases[(c, BATCH_POINTS)] for c in BATCH_CASES])
     total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
     by_path = lambda name: {path: counts[name] for path, counts in path_launches.items()}  # noqa: E731
     return {
@@ -1761,6 +2028,7 @@ def main(argv=None) -> int:
     checked = checked_shapes(cases)
     planeseg_res = timed("planeseg", phase_planeseg, regs, checked)
     profile_table, profile_launches, profile_cmp = timed("profile", phase_profile, regs, checked)
+    batched_res = timed("batched", phase_batched, regs, checked)
     log(f"total: {time.perf_counter() - t0:.1f} s")
     path_launches = {
         "polar": launches, "exact": exact_launches, "semantic_mem": mem_res["launches"],
@@ -1769,6 +2037,7 @@ def main(argv=None) -> int:
         "plugins_updates": plugin_res["launches_updates"], "plugins_exports": plugin_res["launches_exports"],
         "planeseg": planeseg_res["launches"], "planeseg_batch": planeseg_res["batch_launches"],
         "profile": profile_launches,
+        **{f"batched_B{b}": batched_res["per_batch"][str(b)]["launches"] for b in BATCH_SIZES},
     }
     line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS, path_launches)
     if args.json:
@@ -1776,7 +2045,7 @@ def main(argv=None) -> int:
             json.dump({
                 "card": smi, "kernels_line": line, "polar": main_res, "exact": exact_res,
                 "semantic_mem": mem_res, "semantic_all_fusions": allf_res, "image": image_res,
-                "plugins": plugin_res, "planeseg": planeseg_res,
+                "plugins": plugin_res, "planeseg": planeseg_res, "batched": batched_res,
                 "profile": {"stages": profile_table, "launches": profile_launches, "cpu_compare": profile_cmp},
                 "scatter_cases": list(cases.values()),
                 "march_cases": list(march_cases.values()) + list(fresh_cases.values()),

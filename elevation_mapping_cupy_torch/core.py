@@ -7,11 +7,20 @@ a new one; the input state's tensors are not written. The state's device
 decides where the work runs: on a CUDA state the scatters launch kernel K1
 and the exact cleanup kernel K2, on a CPU state they take their plain
 versions.
+
+A state may also be a batch of B independent maps (a leading axis on every
+field, ``state.init_batch``), with the same leading axis on its per-map
+inputs: ``update_batch_aux`` updates a batch, and the per-map updates are it
+at B = 1 (one code path); the image path, the motion and maintenance steps
+take either. Every stage of a batched update runs once for all maps, K1
+once per scatter stage for the whole batch (the exact march is one K2 launch
+per map), and nothing is read back to the host (``move_to`` computes each
+map's whole-cell shift on the device).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -23,12 +32,13 @@ from .ops import raycast as rc
 from .ops import stencil
 from .ops.geometry import associate_points, true_div
 from .semantic.update import reset_sem_new, resolve_channels, update_semantic_pointcloud
-from .state import MapState
+from .state import MapState, stack_tensors, take_map
 
 __all__ = [
     "update_pointcloud",
     "update_pointcloud_aux",
     "update_pointcloud_semantic",
+    "update_batch_aux",
     "image_correspondence",
     "input_image",
     "move_to",
@@ -121,12 +131,37 @@ def _update_impl(
     cfg: MapConfig,
     channels: Tuple[str, ...] = (),
 ) -> Tuple[MapState, Dict[str, torch.Tensor]]:
+    """One update of one map: the batched update at B = 1."""
+    out, aux = update_batch_aux(
+        MapState(*(x[None] for x in state)), points[None], pad_mask[None], R[None], t[None],
+        position_noise, orientation_noise, weights, cfg, channels,
+    )
+    return take_map(out, 0), {k: v[0] for k, v in aux.items()}
+
+
+@torch.no_grad()
+def update_batch_aux(
+    state: MapState,            # batched: (B, ...) on every field
+    points: torch.Tensor,       # (B, N, 3 + C)
+    pad_mask: torch.Tensor,     # (B, N)
+    R: torch.Tensor,            # (B, 3, 3)
+    t: torch.Tensor,            # (B, 3)
+    position_noise: Scalar,     # (B,) or one value for every map
+    orientation_noise: Scalar,
+    weights: TravFilter,        # shared by every map
+    cfg: MapConfig,
+    channels: Tuple[str, ...] = (),
+) -> Tuple[MapState, Dict[str, torch.Tensor]]:
+    """The update of B maps in one pass: every stage over the whole batch,
+    K1 once per scatter stage. Returns the new batched state and the
+    cleanup's aux (``gate_survivor_frac``, one per map). The semantic
+    fusions (``channels``) run map by map."""
     dev, dt = state.layers.device, state.layers.dtype
     position_noise = torch.as_tensor(position_noise, dtype=dt, device=dev)
     orientation_noise = torch.as_tensor(orientation_noise, dtype=dt, device=dev)
 
     t_c = t - state.center            # shift_translation_to_map_center
-    assoc = associate_points(points[:, :3], pad_mask, R, t_c, cfg)
+    assoc = associate_points(points[..., :3], pad_mask, R, t_c, cfg)
 
     layers = state.layers
     # one shared row-gather of the point cells feeds both stages
@@ -150,22 +185,26 @@ def _update_impl(
 
     semantic, sem_new, id_max = state.semantic, state.sem_new, state.id_max
     if channels:
-        semantic, sem_new, id_max = update_semantic_pointcloud(
-            semantic,
-            sem_new,
-            id_max,
-            assoc,
-            points[:, 3 : 3 + len(channels)],
-            channels,
-            newmap[2],
-            cfg,
-        )
+        per_map = [
+            update_semantic_pointcloud(
+                semantic[b],
+                sem_new[b],
+                id_max[b],
+                assoc.map(b),
+                points[b, :, 3 : 3 + len(channels)],
+                channels,
+                newmap[b, 2],
+                cfg,
+            )
+            for b in range(layers.shape[0])
+        ]
+        semantic, sem_new, id_max = (stack_tensors(xs) for xs in zip(*per_map))
 
     if cfg.enable_overlap_clearance:
         layers = pc.clear_overlap(layers, t_c, cfg)
-    trav_input, _ = stencil.dilation_fill(layers[5], layers[2] + layers[6], cfg.dilation_size)
+    trav_input, _ = stencil.dilation_fill(layers[:, 5], layers[:, 2] + layers[:, 6], cfg.dilation_size)
     layers = _apply_traversability(layers, trav_input, weights)
-    normal = stencil.surface_normals(trav_input, layers[2], cfg.resolution)
+    normal = stencil.surface_normals(trav_input, layers[:, 2], cfg.resolution)
     out = state._replace(
         layers=layers,
         normal=normal,
@@ -190,17 +229,20 @@ def image_correspondence(
     cfg: MapConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-cell pixel coordinates and visibility of a camera's image,
-    (uv (2, H, W), valid (H, W) bool): P = K[R|t], the camera cell, then
-    ``ops.image.image_to_map_correspondence``."""
+    (uv (..., 2, H, W), valid (..., H, W) bool): P = K[R|t], the camera
+    cell, then ``ops.image.image_to_map_correspondence``. A batched state
+    takes (B, 3, 3) rotations, (B, 3) translations, (B, 3, 3) intrinsics and
+    (B, 5) distortions."""
     # P = K @ [R|t] and -R^T t as explicit sums of products: float32
     # whatever the matmul precision flags say
-    Rt = torch.cat([R, t[:, None]], dim=1)
-    P = (K[:, :, None] * Rt[None, :, :]).sum(dim=1)
-    t_cam_map = -(R * t[:, None]).sum(dim=0) - state.center
+    Rt = torch.cat([R, t[..., :, None]], dim=-1)
+    P = (K[..., :, :, None] * Rt[..., None, :, :]).sum(dim=-2)
+    t_cam_map = -(R * t[..., :, None]).sum(dim=-2) - state.center
     # uint32 truncation of cell coordinates (elevation_mapping.py:532-533)
-    cam_xy_cell = torch.floor(cfg.cell_n / 2 + true_div(t_cam_map[:2], cfg.resolution)).to(torch.int64)
+    cam_xy_cell = torch.floor(cfg.cell_n / 2 + true_div(t_cam_map[..., :2], cfg.resolution)).to(torch.int64)
     return img_ops.image_to_map_correspondence(
-        state.layers, state.center, cam_xy_cell, t_cam_map[2], P, K, D, float(image_height), float(image_width), cfg
+        state.layers, state.center, cam_xy_cell, t_cam_map[..., 2], P, K, D,
+        float(image_height), float(image_width), cfg,
     )
 
 
@@ -217,7 +259,9 @@ def input_image(
 ) -> MapState:
     """Fuse an image into semantic layers (elevation_mapping.py:468-562):
     the per-cell uv correspondence with its occlusion test
-    (``cfg.image_occlusion_mode``), then the per-channel image fusions.
+    (``cfg.image_occlusion_mode``), then the per-channel image fusions. A
+    batched state takes one image per map, (B, C_img, H_i, W_i), and (B, ...)
+    camera parameters, all maps in one pass.
     """
     image_width = float(image.shape[-1])
     uv, valid = image_correspondence(state, image.shape[-2], image.shape[-1], R, t, K, D, cfg)
@@ -239,104 +283,138 @@ def input_image(
     semantic = state.semantic.clone()
     for col, lay, fusion in resolve_channels(channels, cfg, "image"):
         off = plane_of[col]
+        layer = semantic[..., lay, :, :]
         if fusion == "color":
-            semantic[lay] = img_ops.image_fuse_color(semantic[lay], image[off : off + 3], uv, valid, image_width)
+            layer[...] = img_ops.image_fuse_color(layer, image[..., off : off + 3, :, :], uv, valid, image_width)
         elif fusion == "exponential":
-            semantic[lay] = img_ops.image_fuse_exponential(
-                semantic[lay], image[off], uv, valid, image_width, cfg.image_exponential_alpha
+            layer[...] = img_ops.image_fuse_exponential(
+                layer, image[..., off, :, :], uv, valid, image_width, cfg.image_exponential_alpha
             )
         elif fusion == "average":
-            semantic[lay] = img_ops.image_fuse_replace(semantic[lay], image[off], uv, valid, image_width)
+            layer[...] = img_ops.image_fuse_replace(layer, image[..., off, :, :], uv, valid, image_width)
     return state._replace(semantic=semantic, sem_new=sem_new)
 
 
 def _apply_traversability(layers: torch.Tensor, trav_input: torch.Tensor, weights: TravFilter) -> torch.Tensor:
     trav = weights(trav_input)
     out = layers.clone()
-    out[3, 3:-3, 3:-3] = trav.to(layers.dtype)
+    out[..., 3, 3:-3, 3:-3] = trav.to(layers.dtype)
     return out
 
 
 @torch.no_grad()
 def update_normal(state: MapState, input_map: torch.Tensor, cfg: MapConfig) -> MapState:
     """Recompute normals from an arbitrary height layer (elevation_mapping.py:564-577)."""
-    return state._replace(normal=stencil.surface_normals(input_map, state.layers[2], cfg.resolution))
+    return state._replace(normal=stencil.surface_normals(input_map, state.layers[..., 2, :, :], cfg.resolution))
 
 
 # ---------------------------------------------------------------------------
 # recentering (elevation_mapping.py:139-226)
 # ---------------------------------------------------------------------------
 
-def _roll_pad(x: torch.Tensor, s0: int, s1: int, value: float) -> torch.Tensor:
-    """Roll the last two axes by (s0, s1) and set the revealed rows and
-    columns to ``value`` (cp.roll + pad_value)."""
-    out = torch.roll(x, shifts=(s0, s1), dims=(-2, -1))
-    if s0 > 0:
-        out[..., :s0, :] = value
-    elif s0 < 0:
-        out[..., s0:, :] = value
-    if s1 > 0:
-        out[..., :, :s1] = value
-    elif s1 < 0:
-        out[..., :, s1:] = value
-    return out
+class _Shift(NamedTuple):
+    """A whole-cell roll of the last two axes, per map, as gather indices:
+    ``rows``/``cols`` (..., n) are the source row and column of each output
+    row and column, ``revealed`` (..., n, n) the cells the roll uncovers."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    revealed: torch.Tensor
 
 
-def shift_map_xy(state: MapState, s0: int, s1: int, cfg: MapConfig) -> MapState:
+def _shift(s0, s1, n: int, device) -> _Shift:
+    """The roll by (s0, s1) cells (ints, or tensors of one value per map)
+    as ``cp.roll`` + pad_value does it: output cell (i, j) takes input cell
+    ((i - s0) mod n, (j - s1) mod n), and the rows and columns the shift
+    brings in are revealed. Computed on the device, so a batch of maps can
+    each move by its own shift without a read-back (the traced ``_roll_pad``
+    of the JAX package's core.py:288-320)."""
+    s0 = torch.as_tensor(s0, device=device).to(torch.int64)
+    s1 = torch.as_tensor(s1, device=device).to(torch.int64)
+    r = torch.arange(n, device=device)
+    rows = torch.remainder(r - s0[..., None], n)
+    cols = torch.remainder(r - s1[..., None], n)
+    m0 = torch.where(s0[..., None] > 0, r < s0[..., None], r >= n + s0[..., None])
+    m1 = torch.where(s1[..., None] > 0, r < s1[..., None], r >= n + s1[..., None])
+    revealed = m0[..., :, None] | m1[..., None, :]
+    return _Shift(rows, cols, revealed)
+
+
+def _roll(x: torch.Tensor, sh: _Shift) -> torch.Tensor:
+    """An (batch..., L, n, n) stack rolled by ``sh`` (batch...): two
+    gathers, bit for bit what ``torch.roll`` gives."""
+    lead = sh.rows.shape[:-1]
+    n = x.shape[-1]
+    rows = sh.rows.reshape(*lead, 1, n, 1).expand(x.shape)
+    cols = sh.cols.reshape(*lead, 1, 1, n).expand(x.shape)
+    return torch.gather(torch.gather(x, -2, rows), -1, cols)
+
+
+def _roll_pad(x: torch.Tensor, sh: _Shift, value) -> torch.Tensor:
+    """Roll a stack and set the revealed cells to ``value`` (cp.roll +
+    pad_value)."""
+    if x.numel() == 0:
+        return x
+    return torch.where(sh.revealed[..., None, :, :], value, _roll(x, sh))
+
+
+def shift_map_xy(state: MapState, s0, s1, cfg: MapConfig) -> MapState:
     """Roll all layer stacks by integer cells (s0 along rows, s1 along
     columns); newly revealed cells reset (variance to initial_variance,
-    everything else 0)."""
-    layers = _roll_pad(state.layers, s0, s1, 0.0)
-    layers[1] = _roll_pad(state.layers[1], s0, s1, cfg.initial_variance)
+    everything else 0). The shifts are ints or tensors, one value per map of
+    a batched state."""
+    sh = _shift(s0, s1, state.layers.shape[-1], state.layers.device)
+    rolled = _roll(state.layers, sh)
+    layers = torch.where(sh.revealed[..., None, :, :], 0.0, rolled)
+    layers[..., 1, :, :] = torch.where(sh.revealed, cfg.initial_variance, rolled[..., 1, :, :])
     return state._replace(
         layers=layers,
-        semantic=_roll_pad(state.semantic, s0, s1, 0.0),
-        sem_new=_roll_pad(state.sem_new, s0, s1, 0.0),
-        id_max=_roll_pad(state.id_max, s0, s1, 0),
+        semantic=_roll_pad(state.semantic, sh, 0.0),
+        sem_new=_roll_pad(state.sem_new, sh, 0.0),
+        id_max=_roll_pad(state.id_max, sh, 0),
     )
 
 
 def shift_map_z(state: MapState, delta_z: torch.Tensor) -> MapState:
+    """Shift heights and upper bounds by ``delta_z`` (one value per map)."""
     layers = state.layers.clone()
-    layers[0] += delta_z
-    layers[5] += delta_z
+    dz = delta_z[..., None, None]
+    layers[..., 0, :, :] += dz
+    layers[..., 5, :, :] += dz
     return state._replace(layers=layers)
 
 
-def _pixel_shift(delta_xy: torch.Tensor, cfg: MapConfig):
-    """round(delta / resolution) as a tensor, and as host ints for torch.roll."""
-    delta_pixel = torch.round(true_div(delta_xy, cfg.resolution))
-    # the one read-back of the update: torch.roll takes integer shifts
-    s0, s1 = (int(v) for v in delta_pixel.tolist())
-    return delta_pixel, s0, s1
+def _pixel_shift(delta_xy: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
+    """round(delta / resolution): the whole-cell shift, (..., 2)."""
+    return torch.round(true_div(delta_xy, cfg.resolution))
 
 
 @torch.no_grad()
 def move_to(state: MapState, position: torch.Tensor, R: torch.Tensor, cfg: MapConfig) -> MapState:
     """Shift the map to an absolute position (elevation_mapping.py:154-170).
-
-    Reads the whole-cell shift back to the host once, for ``torch.roll``."""
+    A batched state takes (B, 3) positions and (B, 3, 3) rotations; each map
+    moves by its own whole-cell shift, computed on the device."""
     delta = position - state.center
-    delta_pixel, s0, s1 = _pixel_shift(delta[:2], cfg)
+    delta_pixel = _pixel_shift(delta[..., :2], cfg)
     center = state.center.clone()
-    center[:2] += delta_pixel * cfg.resolution
-    center[2] += delta[2]
+    center[..., :2] += delta_pixel * cfg.resolution
+    center[..., 2] += delta[..., 2]
     state = state._replace(center=center, rotation=R.to(state.rotation.dtype))
-    state = shift_map_xy(state, -s0, -s1, cfg)
-    return shift_map_z(state, -delta[2])
+    state = shift_map_xy(state, -delta_pixel[..., 0], -delta_pixel[..., 1], cfg)
+    return shift_map_z(state, -delta[..., 2])
 
 
 @torch.no_grad()
 def move(state: MapState, delta_position: torch.Tensor, cfg: MapConfig) -> MapState:
-    """Relative shift (elevation_mapping.py:139-152). Like ``move_to``, reads
-    the whole-cell shift back to the host once."""
-    delta_pixel, s0, s1 = _pixel_shift(delta_position[:2], cfg)
+    """Relative shift (elevation_mapping.py:139-152); like ``move_to``, on
+    one map or a batch."""
+    delta_pixel = _pixel_shift(delta_position[..., :2], cfg)
     center = state.center.clone()
-    center[:2] += delta_pixel * cfg.resolution
-    center[2] += delta_position[2]
+    center[..., :2] += delta_pixel * cfg.resolution
+    center[..., 2] += delta_position[..., 2]
     state = state._replace(center=center)
-    state = shift_map_xy(state, s0, s1, cfg)
-    return shift_map_z(state, -delta_position[2])
+    state = shift_map_xy(state, delta_pixel[..., 0], delta_pixel[..., 1], cfg)
+    return shift_map_z(state, -delta_position[..., 2])
 
 
 # ---------------------------------------------------------------------------
@@ -346,30 +424,30 @@ def move(state: MapState, delta_position: torch.Tensor, cfg: MapConfig) -> MapSt
 @torch.no_grad()
 def update_variance(state: MapState, cfg: MapConfig) -> MapState:
     layers = state.layers.clone()
-    layers[1] += cfg.time_variance * state.layers[2]
+    layers[..., 1, :, :] += cfg.time_variance * state.layers[..., 2, :, :]
     return state._replace(layers=layers)
 
 
 @torch.no_grad()
 def update_time(state: MapState, cfg: MapConfig) -> MapState:
     layers = state.layers.clone()
-    layers[4] += cfg.time_interval
+    layers[..., 4, :, :] += cfg.time_interval
     return state._replace(layers=layers)
 
 
 @torch.no_grad()
 def update_upper_bound_with_valid_elevation(state: MapState) -> MapState:
-    mask = state.layers[2] > 0.5
+    mask = state.layers[..., 2, :, :] > 0.5
     layers = state.layers.clone()
-    layers[5] = torch.where(mask, layers[0], layers[5])
-    layers[6] = torch.where(mask, 0.0, layers[6])
+    layers[..., 5, :, :] = torch.where(mask, layers[..., 0, :, :], layers[..., 5, :, :])
+    layers[..., 6, :, :] = torch.where(mask, 0.0, layers[..., 6, :, :])
     return state._replace(layers=layers)
 
 
 @torch.no_grad()
 def clear(state: MapState, cfg: MapConfig) -> MapState:
     layers = torch.zeros_like(state.layers)
-    layers[1] = cfg.initial_variance
+    layers[..., 1, :, :] = cfg.initial_variance
     return state._replace(
         layers=layers,
         semantic=torch.zeros_like(state.semantic),

@@ -28,8 +28,8 @@ DEFAULT_WEIGHT_FILE = os.path.join(
 
 
 class TravFilter(nn.Module):
-    """Frozen CNN; ``forward`` maps an (H, W) dilated upper-bound layer to
-    (H-6, W-6) traversability."""
+    """Frozen CNN; ``forward`` maps an (..., H, W) dilated upper-bound layer
+    to (..., H-6, W-6) traversability, leading axes a batch of maps."""
 
     def __init__(self, w1, w2, w3, w_out):
         super().__init__()
@@ -45,14 +45,15 @@ class TravFilter(nn.Module):
             self.register_buffer(name, t.to(torch.float32).contiguous())
 
     def forward(self, elevation: torch.Tensor) -> torch.Tensor:
-        x = elevation[None, None]
+        lead, (h, w) = elevation.shape[:-2], elevation.shape[-2:]
+        x = elevation.reshape(-1, 1, h, w)
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             o1 = F.conv2d(x, self.w1, dilation=1)[:, :, 2:-2, 2:-2]
             o2 = F.conv2d(x, self.w2, dilation=2)[:, :, 1:-1, 1:-1]
             o3 = F.conv2d(x, self.w3, dilation=3)
             cat = torch.abs(torch.cat([o1, o2, o3], dim=1))
             out = F.conv2d(cat, self.w_out)
-        return torch.exp(-out)[0, 0]
+        return torch.exp(-out).reshape(*lead, h - 6, w - 6)
 
 
 def default_weights() -> TravFilter:

@@ -7,6 +7,9 @@ is_inside / get_idx / z_noise / is_valid), on whole point batches at once.
 Index convention (matches reference): flat index ``idx = W * ix + iy`` with
 ``ix`` derived from world x and ``iy`` from world y; cells on the 1-cell
 border are "outside" (is_inside == False).
+
+Point tensors may carry leading batch axes, one map each: (..., N, 3)
+points with (..., 3, 3) rotations and (..., 3) translations.
 """
 
 from __future__ import annotations
@@ -113,12 +116,16 @@ def is_inside(ix: torch.Tensor, iy: torch.Tensor, cfg: MapConfig) -> torch.Tenso
 
 def transform_points(points: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """World coordinates: R @ p + t for each point (custom_kernels.py:54-57).
+    points (..., N, 3), R (..., 3, 3), t (..., 3).
 
     Expanded elementwise rather than as a matmul, in the JAX package's order
     of operations, so both packages round alike.
     """
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
-    out = [R[i, 0] * x + R[i, 1] * y + R[i, 2] * z + t[i] for i in range(3)]
+    out = [
+        R[..., i, 0, None] * x + R[..., i, 1, None] * y + R[..., i, 2, None] * z + t[..., i, None]
+        for i in range(3)
+    ]
     return torch.stack(out, dim=-1)
 
 
@@ -129,18 +136,21 @@ def z_noise(raw_z: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
 
 def point_validity(world: torch.Tensor, t: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
     """Validity ramp filter (custom_kernels.py:68-81): rejects points too close
-    to the sensor and points above a distance-ramped ceiling."""
+    to the sensor and points above a distance-ramped ceiling. world
+    (..., N, 3), t (..., 3)."""
     x, y, z = world[..., 0], world[..., 1], world[..., 2]
-    d2 = torch.sum((world - t) ** 2, dim=-1)
+    d2 = torch.sum((world - t[..., None, :]) ** 2, dim=-1)
     dxy = torch.clamp(torch.sqrt(x * x + y * y) - cfg.ramped_height_range_b, min=0.0)
     too_close = d2 < cfg.min_valid_distance**2
-    above_ramp = (z - t[2]) > (dxy * cfg.ramped_height_range_a + cfg.ramped_height_range_c)
-    above_max = (z - t[2]) > cfg.max_height_range
+    tz = t[..., 2, None]
+    above_ramp = (z - tz) > (dxy * cfg.ramped_height_range_a + cfg.ramped_height_range_c)
+    above_max = (z - tz) > cfg.max_height_range
     return ~(too_close | above_ramp | above_max)
 
 
 class PointAssociation(NamedTuple):
-    """Per-point association with the grid (custom_kernels.py:260-262)."""
+    """Per-point association with the grid (custom_kernels.py:260-262); a
+    batch of maps adds leading axes to every field."""
 
     world: torch.Tensor     # (N, 3) transformed points (map-center frame)
     noise: torch.Tensor     # (N,)   per-point z noise
@@ -148,6 +158,10 @@ class PointAssociation(NamedTuple):
     valid: torch.Tensor     # (N,)   bool validity-ramp result
     inside: torch.Tensor    # (N,)   bool inside-border result
     mask: torch.Tensor      # (N,)   bool = valid & inside & not-padding
+
+    def map(self, b: int) -> "PointAssociation":
+        """Map ``b``'s association out of a batched one (views)."""
+        return PointAssociation(*(f[b] for f in self))
 
 
 def associate_points(
@@ -159,12 +173,13 @@ def associate_points(
 ) -> PointAssociation:
     """Transform, classify, and bin a (possibly padded) pointcloud.
 
-    ``points``: (N, 3) raw sensor-frame xyz; ``pad_mask``: (N,) True for real
-    points. ``t`` must already be in the map-center frame.
+    ``points``: (..., N, 3) raw sensor-frame xyz; ``pad_mask``: (..., N)
+    True for real points; ``R`` (..., 3, 3); ``t`` (..., 3), already in the
+    map-center frame. Leading axes are a batch of maps.
     """
     world = transform_points(points, R, t)
-    noise = z_noise(points[:, 2], cfg)
-    ix, iy = cell_indices(world[:, :2], torch.zeros((2,), dtype=world.dtype, device=world.device), cfg)
+    noise = z_noise(points[..., 2], cfg)
+    ix, iy = cell_indices(world[..., :2], torch.zeros((2,), dtype=world.dtype, device=world.device), cfg)
     flat = flat_cell_index(ix, iy, cfg)
     valid = point_validity(world, t, cfg) & pad_mask
     inside = is_inside(ix, iy, cfg)

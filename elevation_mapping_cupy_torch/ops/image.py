@@ -14,6 +14,11 @@ re-derivation of the reference image kernels (custom_image_kernels.py):
 
 Quotients that decide a pixel or a bin are tensor-by-tensor divisions (a
 CUDA tensor divided by a Python scalar is multiplied by its reciprocal).
+
+Every function also takes a batch of maps, each with its own camera: a
+leading axis on every argument. The shadow map of each map is its own
+(azimuth, radius) grid inside one scatter; the Bresenham walk steps every
+cell of every map together.
 """
 
 from __future__ import annotations
@@ -59,11 +64,18 @@ def image_to_map_correspondence(
     image_width: float,
     cfg: MapConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (uv (2, H, W), valid (H, W) bool)."""
+    """Returns (uv (2, H, W), valid (H, W) bool); with a leading batch axis
+    on every tensor argument, (B, 2, H, W) and (B, H, W)."""
+    single = layers.dim() == 3
+    if single:
+        layers, center, cam_xy_cell, cam_z, P, K, D = (
+            x[None] for x in (layers, center, cam_xy_cell, cam_z, P, K, D)
+        )
+    nb = layers.shape[0]
     n = cfg.cell_n
     dt = layers.dtype
-    flat_h = layers[0].reshape(-1)
-    flat_valid = layers[2].reshape(-1)
+    flat_h = layers[:, 0].flatten(-2)     # (B, n*n)
+    flat_valid = layers[:, 2].flatten(-2)
 
     i = torch.arange(n * n, device=layers.device)
     x0 = i // n
@@ -71,23 +83,26 @@ def image_to_map_correspondence(
 
     has_height = flat_valid == 1.0
 
-    # cell 3D point in world frame (custom_image_kernels.py:47-50)
-    p1 = (x0.to(dt) - n / 2) * cfg.resolution + center[0]
-    p2 = (y0.to(dt) - n / 2) * cfg.resolution + center[1]
-    p3 = flat_h + center[2]
+    def col(m, r, c):  # one entry per map, against the (B, n*n) cells
+        return m[:, r, c, None]
 
-    u = p1 * P[0, 0] + p2 * P[0, 1] + p3 * P[0, 2] + P[0, 3]
-    v = p1 * P[1, 0] + p2 * P[1, 1] + p3 * P[1, 2] + P[1, 3]
-    d = p1 * P[2, 0] + p2 * P[2, 1] + p3 * P[2, 2] + P[2, 3]
+    # cell 3D point in world frame (custom_image_kernels.py:47-50)
+    p1 = (x0.to(dt) - n / 2) * cfg.resolution + center[:, 0, None]
+    p2 = (y0.to(dt) - n / 2) * cfg.resolution + center[:, 1, None]
+    p3 = flat_h + center[:, 2, None]
+
+    u = p1 * col(P, 0, 0) + p2 * col(P, 0, 1) + p3 * col(P, 0, 2) + col(P, 0, 3)
+    v = p1 * col(P, 1, 0) + p2 * col(P, 1, 1) + p3 * col(P, 1, 2) + col(P, 1, 3)
+    d = p1 * col(P, 2, 0) + p2 * col(P, 2, 1) + p3 * col(P, 2, 2) + col(P, 2, 3)
     in_front = d > 0
     safe_d = torch.where(in_front, d, 1.0)
     u = u / safe_d
     v = v / safe_d
 
     # radtan undistortion (custom_image_kernels.py:64-86)
-    is_D_zero = torch.all(D[:5] == 0)
-    k1, k2, pp1, pp2, k3 = D[0], D[1], D[2], D[3], D[4]
-    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    is_D_zero = torch.all(D[:, :5] == 0, dim=-1)[:, None]
+    k1, k2, pp1, pp2, k3 = (D[:, j, None] for j in range(5))
+    fx, fy, cx, cy = col(K, 0, 0), col(K, 1, 1), col(K, 0, 2), col(K, 1, 2)
     xn = (u - cx) / fx
     yn = (v - cy) / fy
     r2 = xn * xn + yn * yn
@@ -100,20 +115,21 @@ def image_to_map_correspondence(
     in_image = (u >= 0) & (v >= 0) & (u < image_width) & (v < image_height)
     candidate = has_height & in_front & in_image
 
-    x1 = cam_xy_cell[0].to(torch.int64)
-    y1 = cam_xy_cell[1].to(torch.int64)
+    x1 = cam_xy_cell[:, 0, None].to(torch.int64)
+    y1 = cam_xy_cell[:, 1, None].to(torch.int64)
+    cz = cam_z[:, None]
 
     if cfg.image_occlusion_mode == "shadow":
-        blocked = _occlusion_shadow(flat_h, flat_valid, x0, y0, x1, y1, cam_z, cfg)
+        blocked = _occlusion_shadow(flat_h, flat_valid, x0, y0, x1, y1, cz, cfg)
     else:
-        blocked = _occlusion_bresenham(flat_h, flat_valid, candidate, x0, y0, x1, y1, cam_z, cfg)
+        blocked = _occlusion_bresenham(flat_h, flat_valid, candidate, x0, y0, x1, y1, cz, cfg)
 
-    uv = torch.stack([u, v]).reshape(2, n, n)
-    valid = (candidate & ~blocked).reshape(n, n)
+    uv = torch.stack([u, v], dim=1).reshape(nb, 2, n, n)
+    valid = (candidate & ~blocked).reshape(nb, n, n)
     # cells that failed the early-return gates keep zeroed uv (buffer cleared
     # before the kernel in the reference, elevation_mapping.py:536-537)
-    uv = torch.where(candidate.reshape(1, n, n), uv, 0.0)
-    return uv, valid
+    uv = torch.where(candidate.reshape(nb, 1, n, n), uv, 0.0)
+    return (uv[0], valid[0]) if single else (uv, valid)
 
 
 def _occlusion_bresenham(
@@ -129,7 +145,8 @@ def _occlusion_bresenham(
 ) -> torch.Tensor:
     """Bresenham march from every cell toward the camera cell
     (custom_image_kernels.py:100-147): blocked where a valid cell on the
-    line stands more than ``tolerance_z_collision`` above the ray."""
+    line stands more than ``tolerance_z_collision`` above the ray. Maps are
+    (B, n*n), the camera cell and height (B, 1)."""
     n = cfg.cell_n
     dt = flat_h.dtype
     total_dis = _sqrt((x0 - x1).to(dt) ** 2 + (y0 - y1).to(dt) ** 2)
@@ -143,7 +160,7 @@ def _occlusion_bresenham(
     safe_total = torch.where(has_total, total_dis, 1.0)
     obstacle = flat_h - cfg.tolerance_z_collision
 
-    cx_, cy_, err = x0, y0, dx + dy
+    cx_, cy_, err = x0.expand_as(dx), y0.expand_as(dy), dx + dy
     done = ~candidate
     blocked = torch.zeros_like(candidate)
     for step in range(2 * n):
@@ -154,10 +171,10 @@ def _occlusion_bresenham(
 
         inside = (cx_ >= 0) & (cy_ >= 0) & (cx_ < n) & (cy_ < n)
         idxc = torch.clamp(cy_ + cx_ * n, 0, n * n - 1)
-        cell_has = flat_valid[idxc] != 0
+        cell_has = torch.gather(flat_valid, -1, idxc) != 0
         dis = _sqrt((x0 - cx_).to(dt) ** 2 + (y0 - cy_).to(dt) ** 2)
         rayheight = z0 + torch.where(has_total, dis / safe_total, 0.0) * delta_z
-        collide = ~done & inside & cell_has & (obstacle[idxc] > rayheight)
+        collide = ~done & inside & cell_has & (torch.gather(obstacle, -1, idxc) > rayheight)
         blocked = blocked | collide
         done = done | collide
 
@@ -202,8 +219,12 @@ def _occlusion_shadow(
     raycast (ops/raycast.py): a line at angle theta sweeps cells over a
     perpendicular band of width |cos|+|sin| cells, widened into a ring
     max-pyramid query so near-camera cells consult enough bins.
+
+    Maps are (B, n*n), the camera cell and height (B, 1); each map's
+    shadow grid is its own (A, R) block of one scatter-max.
     """
     n = cfg.cell_n
+    nb = flat_h.shape[0]
     A = cfg.image_occlusion_azimuth_bins
     R = int(math.ceil(n * math.sqrt(2.0))) + 2
     dt = flat_h.dtype
@@ -221,16 +242,16 @@ def _occlusion_shadow(
     s_obs = (flat_h - cfg.tolerance_z_collision - cam_z) / safe_r
     part = has & (r > 0.5)
 
-    cube = scatter.scatter_max(A * R, a_idx * R + r_idx, s_obs, part, -math.inf).reshape(A, R)
-    pref = torch.cummax(cube, dim=1).values  # incl. own bin
+    cube = scatter.scatter_max(A * R, a_idx * R + r_idx, s_obs, part, -math.inf).reshape(nb, A, R)
+    pref = torch.cummax(cube, dim=-1).values  # incl. own bin
 
     # ring max-pyramid over azimuth (level l covers [a, a + 2^l))
     n_levels = min(10, max(1, math.ceil(math.log2(A))))
     levels = [pref]
     for l in range(1, n_levels + 1):
         prev = levels[-1]
-        levels.append(torch.maximum(prev, torch.roll(prev, -(1 << (l - 1)), dims=0)))
-    pyr_flat = torch.stack(levels).reshape((n_levels + 1) * A * R)  # (L+1, A, R)
+        levels.append(torch.maximum(prev, torch.roll(prev, -(1 << (l - 1)), dims=1)))
+    pyr_flat = torch.stack(levels, dim=1).reshape(nb, (n_levels + 1) * A * R)  # (B, L+1, A, R)
 
     # azimuth crossing band of the line at this cell's angle (cell units)
     band = torch.abs(torch.cos(az)) + torch.abs(torch.sin(az))
@@ -242,8 +263,8 @@ def _occlusion_shadow(
     start1 = lo % A
     start2 = (lo + width - torch.bitwise_left_shift(torch.ones_like(lvl), lvl)) % A
     rq = torch.clamp(r_idx - 1, min=0)  # strictly-closer bins only
-    m1 = pyr_flat[(lvl * A + start1) * R + rq]
-    m2 = pyr_flat[(lvl * A + start2) * R + rq]
+    m1 = torch.gather(pyr_flat, -1, (lvl * A + start1) * R + rq)
+    m2 = torch.gather(pyr_flat, -1, (lvl * A + start2) * R + rq)
     shadow = torch.maximum(m1, m2)
 
     s_cell = (flat_h - cam_z) / safe_r
@@ -251,12 +272,12 @@ def _occlusion_shadow(
 
 
 def _gather_pixels(image: torch.Tensor, uv: torch.Tensor, image_width: float) -> torch.Tensor:
-    """image: (H_i, W_i) flat gather at integer-cast uv, matching
-    ``int(u) + int(v) * image_width`` (custom_image_kernels.py:182)."""
-    flat = image.reshape(-1)
-    idx = uv[0].to(torch.int64) + uv[1].to(torch.int64) * int(image_width)
-    idx = torch.clamp(idx, 0, flat.shape[0] - 1)
-    return flat[idx.reshape(-1)].reshape(uv.shape[1:])
+    """image: (..., H_i, W_i) flat gather at integer-cast uv (..., 2, H, W),
+    matching ``int(u) + int(v) * image_width`` (custom_image_kernels.py:182)."""
+    flat = image.flatten(-2)
+    idx = uv[..., 0, :, :].to(torch.int64) + uv[..., 1, :, :].to(torch.int64) * int(image_width)
+    idx = torch.clamp(idx, 0, flat.shape[-1] - 1)
+    return torch.gather(flat, -1, idx.flatten(-2)).reshape(uv.shape[:-3] + uv.shape[-2:])
 
 
 def image_fuse_replace(sem_layer, image_mono, uv, valid, image_width):
@@ -271,9 +292,10 @@ def image_fuse_exponential(sem_layer, image_mono, uv, valid, image_width, alpha)
 
 
 def image_fuse_color(sem_layer, image_rgb, uv, valid, image_width):
-    """color_correspondences_to_map_kernel: pack rgb at uv into float bits."""
-    r = _gather_pixels(image_rgb[0], uv, image_width)
-    g = _gather_pixels(image_rgb[1], uv, image_width)
-    b = _gather_pixels(image_rgb[2], uv, image_width)
+    """color_correspondences_to_map_kernel: pack rgb at uv into float bits.
+    ``image_rgb`` is (..., 3, H_i, W_i)."""
+    r = _gather_pixels(image_rgb[..., 0, :, :], uv, image_width)
+    g = _gather_pixels(image_rgb[..., 1, :, :], uv, image_width)
+    b = _gather_pixels(image_rgb[..., 2, :, :], uv, image_width)
     packed = uint_to_rgb_float(r.to(torch.int64), g.to(torch.int64), b.to(torch.int64))
     return torch.where(valid, packed, sem_layer)

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import MapConfig
+from ..state import stack_tensors
 from . import cuda_march, scatter
 from .geometry import PointAssociation, true_div
 
@@ -86,8 +87,9 @@ def resolve_exact_impl(cfg: MapConfig) -> str:
 
 
 def _no_gate_aux(layers: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Aux of a cleanup that runs no gate: "everything survives"."""
-    return {"gate_survivor_frac": torch.ones((), dtype=layers.dtype, device=layers.device)}
+    """Aux of a cleanup that runs no gate: "everything survives" (one
+    value per map of a batch)."""
+    return {"gate_survivor_frac": torch.ones(layers.shape[:-3], dtype=layers.dtype, device=layers.device)}
 
 
 def visibility_cleanup(
@@ -102,9 +104,13 @@ def visibility_cleanup(
     """Dispatch on cfg.raycast_mode ("polar" / "exact" / "auto").
 
     With ``with_aux=True`` returns ``(layers, aux)``; aux's
-    ``gate_survivor_frac`` (0-d tensor) is the gated march's segment
-    survivor fraction, 1.0 for every other path, the signal
-    :class:`AdaptiveExactRouter` routes on."""
+    ``gate_survivor_frac`` (0-d tensor, or one per map) is the gated march's
+    segment survivor fraction, 1.0 for every other path, the signal
+    :class:`AdaptiveExactRouter` routes on.
+
+    A batch of maps (a leading axis on every argument) takes the polar cube
+    as one pass over all maps, and the exact march as one K2 launch per map.
+    """
     if not cfg.enable_visibility_cleanup or cfg.n_ray_steps <= 0:
         return (layers, _no_gate_aux(layers)) if with_aux else layers
     mode = resolve_raycast_mode(cfg)
@@ -112,7 +118,17 @@ def visibility_cleanup(
         out = visibility_cleanup_polar(layers, normal, assoc, inlier_cnt, t, cfg)
         return (out, _no_gate_aux(layers)) if with_aux else out
     if mode == "exact":
-        return visibility_cleanup_exact(layers, normal, assoc, inlier_cnt, t, cfg, with_aux=with_aux)
+        resolve_exact_impl(cfg)  # an unknown implementation raises here
+        if layers.dim() == 3:
+            return visibility_cleanup_exact(layers, normal, assoc, inlier_cnt, t, cfg, with_aux=with_aux)
+        outs = [
+            visibility_cleanup_exact(layers[b], normal[b], assoc.map(b), inlier_cnt[b], t[b], cfg, with_aux=True)
+            for b in range(layers.shape[0])
+        ]
+        out = stack_tensors([o for o, _ in outs])
+        if not with_aux:
+            return out
+        return out, {"gate_survivor_frac": stack_tensors([a["gate_survivor_frac"] for _, a in outs])}
     raise ValueError(f"unknown raycast_mode {cfg.raycast_mode!r}")
 
 
@@ -282,6 +298,11 @@ def _bin(x: torch.Tensor, hi: int, rounding: bool = False) -> torch.Tensor:
     return (torch.round(x) if rounding else x).to(torch.int32)
 
 
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of a (B, M, C) table at the (B, Q) indices: (B, Q, C)."""
+    return torch.gather(table, 1, idx.long()[:, :, None].expand(-1, -1, table.shape[-1]))
+
+
 def visibility_cleanup_polar(
     layers: torch.Tensor,
     normal: torch.Tensor,
@@ -300,23 +321,31 @@ def visibility_cleanup_polar(
     azimuth axis range-queryable, and each map cell answers its penetration
     query with a few row gathers plus a reduction over the S elevation
     buckets. The two cube scatter-adds are one 2-stream launch of kernel K1.
+
+    A batch of maps (leading axis on every argument) bins all its rays in
+    that one launch, each map into its own cube. The per-cell evaluation's
+    (cells x S) tensors run over at most ``POLAR_EVAL_BYTES`` of them at a
+    time: maps beyond that share of the batch are evaluated in later chunks.
     """
+    single = layers.dim() == 3
+    if single:
+        layers, normal, inlier_cnt, t = layers[None], normal[None], inlier_cnt[None], t[None]
+        assoc = PointAssociation(*(f[None] for f in assoc))
     n = cfg.cell_n
     A = cfg.azimuth_bins
     S = cfg.raycast_elevation_bins
     R = cfg.n_ray_steps + 2
     step = cfg.ray_step
-    dt = layers.dtype
-    dev = layers.device
     two_pi = 2.0 * math.pi
+    nb = layers.shape[0]
 
     p = assoc.world
-    v = p - t
-    len_xy = torch.sqrt(v[:, 0] ** 2 + v[:, 1] ** 2)
+    v = p - t[:, None, :]
+    len_xy = torch.sqrt(v[..., 0] ** 2 + v[..., 1] ** 2)
     len3d = torch.sqrt(torch.clamp(torch.sum(v * v, dim=-1), min=1e-30))
-    phi = torch.atan2(v[:, 2], len_xy)                    # elevation
-    az = torch.atan2(v[:, 1], v[:, 0])                    # azimuth [-pi, pi]
-    slope = v[:, 2] / torch.clamp(len_xy, min=1e-30)      # tan(phi)
+    phi = torch.atan2(v[..., 2], len_xy)                   # elevation
+    az = torch.atan2(v[..., 1], v[..., 0])                 # azimuth [-pi, pi]
+    slope = v[..., 2] / torch.clamp(len_xy, min=1e-30)     # tan(phi)
 
     a_idx = _bin((az + math.pi) * (A / two_pi), A - 1)
     s_idx = _bin((phi + math.pi / 2) * (S / math.pi), S - 1)
@@ -331,37 +360,70 @@ def visibility_cleanup_polar(
     inv_len = 1.0 / torch.clamp(ray_len, min=1e-30)
 
     cubes = scatter.scatter_add_multi(A * R * S, cube_idx, [torch.ones_like(inv_len), inv_len], active)
-    cnt_cube = cubes[0].reshape(A, R, S)
-    inv_cube = cubes[1].reshape(A, R, S)
+    cubes = cubes.reshape(nb, 2, A, R, S)
     use_bins_slope = cfg.raycast_slope_from_bins
     if not use_bins_slope:
-        slope_cube = scatter.scatter_min(A * R * S, cube_idx, slope, active, math.inf).reshape(A, R, S)
+        slope_cube = scatter.scatter_min(A * R * S, cube_idx, slope, active, math.inf).reshape(nb, A, R, S)
 
-    # suffix scans along R: "rays with r_act >= r"
-    cnt_suf = torch.flip(torch.cumsum(torch.flip(cnt_cube, [1]), dim=1), [1])
-    inv_suf = torch.flip(torch.cumsum(torch.flip(inv_cube, [1]), dim=1), [1])
-
-    # azimuth prefix for range sums; cnt+inv packed into one (A, R, 2S) tensor
-    packed = torch.cat([cnt_suf, inv_suf], dim=-1)
-    pref = torch.cumsum(packed, dim=0)                    # (A, R, 2S)
-    total = pref[-1]                                      # (R, 2S)
+    # suffix scans along R: "rays with r_act >= r", cnt and inv packed into
+    # one (B, A, R, 2S) tensor
+    packed = torch.cat([torch.flip(torch.cumsum(torch.flip(cubes[:, i], [2]), dim=2), [2]) for i in range(2)], dim=-1)
+    del cubes
+    # azimuth prefix for range sums
+    pref = torch.cumsum(packed, dim=1)                    # (B, A, R, 2S)
+    del packed
+    total = pref[:, -1]                                   # (B, R, 2S)
 
     # ring min-pyramid over azimuth: level l = window [a, a + 2^l)
     n_levels = min(cfg.raycast_pyramid_levels, max(1, math.ceil(math.log2(A))))
+    pyramid = None
     if not use_bins_slope:
-        slope_suf = torch.flip(torch.cummin(torch.flip(slope_cube, [1]), dim=1).values, [1])
+        slope_suf = torch.flip(torch.cummin(torch.flip(slope_cube, [2]), dim=2).values, [2])
         levels = [slope_suf]
         for lv in range(1, n_levels + 1):
             prev = levels[-1]
-            levels.append(torch.minimum(prev, torch.roll(prev, -(1 << (lv - 1)), dims=0)))
-        pyramid = torch.stack(levels)                     # (L+1, A, R, S)
+            levels.append(torch.minimum(prev, torch.roll(prev, -(1 << (lv - 1)), dims=1)))
+        pyramid = torch.stack(levels, dim=1).reshape(nb, (n_levels + 1) * A * R, S)  # (B, L+1, A, R, S)
 
-    # ---- per-cell evaluation ----
+    per_map = n * n * S * layers.element_size()
+    chunk = max(1, min(nb, POLAR_EVAL_BYTES // per_map))
+    geo = (A, R, S, n_levels)
+    out = torch.cat([
+        _polar_evaluate(
+            layers[b0:b0 + chunk], normal[b0:b0 + chunk], inlier_cnt[b0:b0 + chunk], t[b0:b0 + chunk],
+            pref[b0:b0 + chunk].reshape(-1, A * R, 2 * S), total[b0:b0 + chunk],
+            None if pyramid is None else pyramid[b0:b0 + chunk], geo, cfg,
+        )
+        for b0 in range(0, nb, chunk)
+    ]) if chunk < nb else _polar_evaluate(
+        layers, normal, inlier_cnt, t, pref.reshape(nb, A * R, 2 * S), total, pyramid, geo, cfg
+    )
+    return out[0] if single else out
+
+
+# bytes of one (maps x cells x S) float32 tensor of the polar cleanup's
+# per-cell evaluation: a batch larger than this evaluates in chunks of maps
+POLAR_EVAL_BYTES = 1 << 29
+
+
+def _polar_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo, cfg) -> torch.Tensor:
+    """The per-cell half of :func:`visibility_cleanup_polar` for a batch
+    of maps: each cell's azimuth-window query of the prefix cube
+    ``pref_flat`` (B, A*R, 2S) and its row of ``total`` (B, R, 2S), the
+    penetration test over the S buckets, and the layer updates."""
+    A, R, S, n_levels = geo
+    n = cfg.cell_n
+    step = cfg.ray_step
+    dt = layers.dtype
+    dev = layers.device
+    two_pi = 2.0 * math.pi
+    tx, ty, tz = (t[:, i, None] for i in range(3))
+
     i = torch.arange(n * n, dtype=torch.int32, device=dev)
     row_i = i // n
     col_i = i % n
-    cx = (row_i.to(dt) + 0.5 - 0.5 * n) * cfg.resolution - t[0]
-    cy = (col_i.to(dt) + 0.5 - 0.5 * n) * cfg.resolution - t[1]
+    cx = (row_i.to(dt) + 0.5 - 0.5 * n) * cfg.resolution - tx
+    cy = (col_i.to(dt) + 0.5 - 0.5 * n) * cfg.resolution - ty
     r_c = torch.sqrt(cx * cx + cy * cy)
     a_c = torch.atan2(cy, cx)
     ai = _bin((a_c + math.pi) * (A / two_pi), A - 1)
@@ -379,37 +441,35 @@ def visibility_cleanup_polar(
     width = 2 * hw + 1
 
     # single-row gathers at the joint (azimuth, radius) index
-    ril = ri.long()
-    pref_flat = pref.reshape(A * R, 2 * S)
-    hi_rows = pref_flat[((hi % A) * R + ri).long()]
-    lo_rows0 = pref_flat[(((lo - 1) % A) * R + ri).long()]
+    hi_rows = _rows(pref_flat, (hi % A) * R + ri)
+    lo_rows0 = _rows(pref_flat, ((lo - 1) % A) * R + ri)
     zero_lo = (lo % A) == 0
-    lo_rows = torch.where(zero_lo[:, None], 0.0, lo_rows0)
-    tot_rows = total.reshape(R, 2 * S)[ril]
+    lo_rows = torch.where(zero_lo[..., None], 0.0, lo_rows0)
+    tot_rows = _rows(total, ri)
     wrapped = (lo % A) > (hi % A)
-    sums_rows = torch.where(wrapped[:, None], tot_rows - (lo_rows - hi_rows), hi_rows - lo_rows)
-    cnt_k = sums_rows[:, :S]
-    inv_k = sums_rows[:, S:]
+    sums_rows = torch.where(wrapped[..., None], tot_rows - (lo_rows - hi_rows), hi_rows - lo_rows)
+    del hi_rows, lo_rows0, lo_rows, tot_rows  # the largest temporaries: (B, n*n, 2S)
+    cnt_k = sums_rows[..., :S]
+    inv_k = sums_rows[..., S:]
 
-    if not use_bins_slope:
+    if pyramid is not None:
         # windowed min query: level l = ceil(log2(width)); two windows cover it
         lvl = torch.clamp(torch.ceil(torch.log2(width.to(dt))), 0, n_levels).to(torch.int32)
         start1 = lo % A
         start2 = (lo + width - (torch.ones_like(lvl) << lvl)) % A
-        pyr_flat = pyramid.reshape((n_levels + 1) * A * R, S)
-        m1 = pyr_flat[((lvl * A + start1) * R + ri).long()]
-        m2 = pyr_flat[((lvl * A + start2) * R + ri).long()]
-        slope_k_min = torch.minimum(m1, m2)               # (n*n, S)
+        m1 = _rows(pyramid, (lvl * A + start1) * R + ri)
+        m2 = _rows(pyramid, (lvl * A + start2) * R + ri)
+        slope_k_min = torch.minimum(m1, m2)               # (B, n*n, S)
 
-    flatL = layers.reshape(7, -1)
-    cell_h = flatL[0]
-    cell_v = flatL[1]
-    cell_valid = flatL[2]
-    cell_t = flatL[4]
-    cell_ub = flatL[5]
-    cell_iub = flatL[6]
-    nrm = normal.reshape(3, -1)
-    ic = inlier_cnt.reshape(-1)
+    flatL = layers.flatten(-2)
+    cell_h = flatL[:, 0]
+    cell_v = flatL[:, 1]
+    cell_valid = flatL[:, 2]
+    cell_t = flatL[:, 4]
+    cell_ub = flatL[:, 5]
+    cell_iub = flatL[:, 6]
+    nrm = normal.flatten(-2)
+    ic = inlier_cnt.flatten(-2)
 
     inside = (row_i > 0) & (row_i < n - 1) & (col_i > 0) & (col_i < n - 1)
 
@@ -427,24 +487,24 @@ def visibility_cleanup_polar(
     delta_k = cfg.ray_step * cos_pk                       # (S,) xy spacing
     mean_chord = cfg.resolution**2 / torch.clamp(band, min=1e-9)
     r_eval = torch.clamp(
-        safe_r[:, None] - 0.5 * mean_chord[:, None] + 0.5 * delta_k[None, :], min=1e-6
-    )                                                     # (n*n, S)
+        safe_r[..., None] - 0.5 * mean_chord[..., None] + 0.5 * delta_k, min=1e-6
+    )                                                     # (B, n*n, S)
 
-    s_star_num = cell_h - 0.01 + torch.clamp(cell_v, max=1.0) * 0.05 - t[2]
-    pen_k = tan_k[None, :] * r_eval < s_star_num[:, None]
+    s_star_num = cell_h - 0.01 + torch.clamp(cell_v, max=1.0) * 0.05 - tz
+    pen_k = tan_k * r_eval < s_star_num[..., None]
 
-    g_c = torch.cos(a_c) * nrm[0] + torch.sin(a_c) * nrm[1]
-    dot_k = torch.abs(g_c[:, None] * cos_pk[None, :] + nrm[2][:, None] * sin_pk[None, :])
+    g_c = torch.cos(a_c) * nrm[:, 0] + torch.sin(a_c) * nrm[:, 1]
+    dot_k = torch.abs(g_c[..., None] * cos_pk + nrm[:, 2, :, None] * sin_pk)
     cos_ok = dot_k >= cfg.cleanup_cos_thresh
 
     # sampling-acceptance correction: P(hit | chord l) = min(1, l / delta)
     # integrated over the chord profile of a square cell
     mx = torch.maximum(abs_c, abs_s)
-    w_lin = band[:, None] - delta_k[None, :] * (abs_c * abs_s)[:, None]
-    w_sat = (cfg.resolution**2) / torch.clamp(delta_k[None, :], min=1e-9)
-    use_sat = delta_k[None, :] >= (cfg.resolution / torch.clamp(mx, min=1e-9))[:, None]
+    w_lin = band[..., None] - delta_k * (abs_c * abs_s)[..., None]
+    w_sat = (cfg.resolution**2) / torch.clamp(delta_k, min=1e-9)
+    use_sat = delta_k >= (cfg.resolution / torch.clamp(mx, min=1e-9))[..., None]
     w_eff = torch.where(use_sat, w_sat, w_lin)
-    accept_k = torch.clamp(w_eff / torch.clamp(band[:, None], min=1e-9), 0.0, 1.0)
+    accept_k = torch.clamp(w_eff / torch.clamp(band[..., None], min=1e-9), 0.0, 1.0)
 
     has_rays = cnt_k > 0.5
     is_invalid = cell_valid < 0.5
@@ -452,27 +512,27 @@ def visibility_cleanup_polar(
     wall_skip = (ic > cfg.wall_num_thresh) & (cell_t < 1.0)
     cell_gate = in_range & inside & ~is_invalid & not_recent & ~wall_skip
 
-    hit_k = has_rays & pen_k & cos_ok & cell_gate[:, None]
+    hit_k = has_rays & pen_k & cos_ok & cell_gate[..., None]
     dec = cfg.cleanup_step * cfg.max_ray_length * torch.sum(
-        torch.where(hit_k, inv_k * accept_k, 0.0), dim=1
+        torch.where(hit_k, inv_k * accept_k, 0.0), dim=-1
     )
-    var = cfg.outlier_variance * torch.sum(torch.where(hit_k, cnt_k * accept_k, 0.0), dim=1)
+    var = cfg.outlier_variance * torch.sum(torch.where(hit_k, cnt_k * accept_k, 0.0), dim=-1)
 
     # upper-bound candidates: min ray height per bucket at the eval radius
-    if use_bins_slope:
-        nz_k = t[2] + r_eval * tan_k[None, :]
+    if pyramid is None:
+        nz_k = tz[..., None] + r_eval * tan_k
     else:
-        nz_k = t[2] + r_eval * slope_k_min
-    ub_cond_k = (cell_iub[:, None] < 0.5) | (nz_k < cell_ub[:, None])
-    candA = (in_range & inside & is_invalid)[:, None] & has_rays & ub_cond_k
+        nz_k = tz[..., None] + r_eval * slope_k_min
+    ub_cond_k = (cell_iub[..., None] < 0.5) | (nz_k < cell_ub[..., None])
+    candA = (in_range & inside & is_invalid)[..., None] & has_rays & ub_cond_k
     candB = hit_k & ub_cond_k
     cand = candA | candB
-    ubmin = torch.amin(torch.where(cand, nz_k, math.inf), dim=1)
+    ubmin = torch.amin(torch.where(cand, nz_k, math.inf), dim=-1)
     wrote = torch.isfinite(ubmin)
 
     out = flatL.clone()
-    out[2] -= dec.to(dt)
-    out[1] += var.to(dt)
-    out[5] = torch.where(wrote, ubmin.to(dt), out[5])
-    out[6] = torch.where(wrote, 1.0, out[6])
-    return out.reshape(7, n, n)
+    out[:, 2] -= dec.to(dt)
+    out[:, 1] += var.to(dt)
+    out[:, 5] = torch.where(wrote, ubmin.to(dt), out[:, 5])
+    out[:, 6] = torch.where(wrote, 1.0, out[:, 6])
+    return out.reshape(layers.shape)

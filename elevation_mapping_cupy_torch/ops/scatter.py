@@ -6,10 +6,16 @@ dispatches on the tensors' device: the CUDA kernel K1 for a CUDA tensor
 (raising if it cannot launch), the plain ``index_add_`` version for a CPU
 tensor. Masked-out points contribute their neutral value at cell 0, as in
 the JAX package (``scatter.py:56-59``).
+
+Every function takes leading batch axes on its per-point tensors (the maps
+of a batch, each with its own cells): the scatter-adds hand all maps to one
+K1 launch, the others offset each map's indices into one ``scatter_reduce``.
+Unbatched tensors are a batch of one.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -37,17 +43,25 @@ def scatter_add_multi(
     n_cells: int, idx: torch.Tensor, values: Sequence[torch.Tensor], mask: torch.Tensor
 ) -> torch.Tensor:
     """Scatter several per-point value streams with one shared index set, in
-    one kernel launch. Returns (K, n_cells) float32. The kernel skips masked
-    points, so their index and values are never read."""
-    vals = torch.stack([v.to(torch.float32) for v in values])  # (K, N)
-    return cuda_scatter.scatter_add_streams(
-        idx.to(torch.int32)[None].contiguous(), mask[None].contiguous(), vals[None], n_cells
-    )[0]
+    one kernel launch. ``idx``, ``mask`` and each value stream are (..., N);
+    returns (..., K, n_cells) float32, the leading axes a batch of maps that
+    K1 takes in the same launch. The kernel skips masked points, so their
+    index and values are never read."""
+    lead = idx.shape[:-1]
+    n = idx.shape[-1]
+    vals = torch.stack([v.to(torch.float32) for v in values], dim=-2)  # (..., K, N)
+    out = cuda_scatter.scatter_add_streams(
+        idx.to(torch.int32).reshape(-1, n).contiguous(),
+        mask.reshape(-1, n).contiguous(),
+        vals.reshape(-1, len(values), n),
+        n_cells,
+    )
+    return out.reshape(*lead, len(values), n_cells)
 
 
 def scatter_add(n_cells: int, idx: torch.Tensor, values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """sum_i values[i] into flat cells; returns (n_cells,)."""
-    return scatter_add_multi(n_cells, idx, [values], mask)[0]
+    """sum_i values[i] into flat cells; returns (..., n_cells)."""
+    return scatter_add_multi(n_cells, idx, [values], mask)[..., 0, :]
 
 
 def scatter_add_streams_2d(
@@ -58,7 +72,7 @@ def scatter_add_streams_2d(
     mask: torch.Tensor,
     exact: Tuple[bool, ...],
 ) -> torch.Tensor:
-    """Scatter K per-point streams into an (h, w) grid; returns (K, h, w).
+    """Scatter K per-point streams into an (h, w) grid; returns (..., K, h, w).
 
     ``exact[k]`` marks streams whose values are integers (flags, counts).
     The JAX package's MXU kernel needs it to split the other streams into
@@ -66,7 +80,25 @@ def scatter_add_streams_2d(
     only for the same signature (integer streams sum exactly below 2^24)."""
     if len(exact) != len(values):
         raise ValueError(f"exact names {len(exact)} streams, values has {len(values)}")
-    return scatter_add_multi(h * w, flat_idx, values, mask).reshape(-1, h, w)
+    out = scatter_add_multi(h * w, flat_idx, values, mask)
+    return out.reshape(*out.shape[:-1], h, w)
+
+
+def _scatter_reduce(
+    n_cells: int, idx: torch.Tensor, values: torch.Tensor, mask: torch.Tensor, init, reduce: str
+) -> torch.Tensor:
+    """``scatter_reduce`` of (..., N) points into (..., n_cells): with
+    leading axes, map b's indices are offset by b * n_cells into one flat
+    reduction."""
+    safe_idx, safe_val = _masked(idx, values, mask, init)
+    lead = idx.shape[:-1]
+    b = math.prod(lead)
+    flat_idx = safe_idx.to(torch.int64)
+    if b > 1:
+        flat_idx = flat_idx + torch.arange(b, device=idx.device).view(*lead, 1) * n_cells
+    out = torch.full((b * n_cells,), init, dtype=values.dtype, device=values.device)
+    out = out.scatter_reduce(0, flat_idx.reshape(-1), safe_val.reshape(-1), reduce=reduce, include_self=True)
+    return out.reshape(*lead, n_cells)
 
 
 def scatter_min(
@@ -74,9 +106,7 @@ def scatter_min(
 ) -> torch.Tensor:
     """Per-cell minimum. An XLA scatter in the JAX package, not a Pallas
     kernel, so PyTorch's ``scatter_reduce`` serves on every device."""
-    safe_idx, safe_val = _masked(idx, values, mask, init)
-    out = torch.full((n_cells,), init, dtype=values.dtype, device=values.device)
-    return out.scatter_reduce(0, safe_idx.to(torch.int64), safe_val, reduce="amin", include_self=True)
+    return _scatter_reduce(n_cells, idx, values, mask, init, "amin")
 
 
 def scatter_max(
@@ -84,9 +114,7 @@ def scatter_max(
 ) -> torch.Tensor:
     """Per-cell maximum; like :func:`scatter_min`, an XLA scatter in the JAX
     package (``ops/scatter.py:167-169``) and ``scatter_reduce`` here."""
-    safe_idx, safe_val = _masked(idx, values, mask, init)
-    out = torch.full((n_cells,), init, dtype=values.dtype, device=values.device)
-    return out.scatter_reduce(0, safe_idx.to(torch.int64), safe_val, reduce="amax", include_self=True)
+    return _scatter_reduce(n_cells, idx, values, mask, init, "amax")
 
 
 def scatter_or(n_cells: int, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -26,9 +26,10 @@ __all__ = ["dilation_fill", "surface_normals", "min_filter", "max_filter", "unif
 
 
 def _flat_neighbor(fm: torch.Tensor, off: int, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flat-index neighbor i+off with the reference's bounds semantics:
-    valid iff 0 <= i+off < n*n and the decomposed (row, col) is interior.
-    Rolled values that wrap are masked out by ``in_range``."""
+    """Flat-index neighbor i+off of a (..., n*n) grid with the reference's
+    bounds semantics: valid iff 0 <= i+off < n*n and the decomposed (row,
+    col) is interior. Rolled values that wrap are masked out by
+    ``in_range``."""
     nn_ = n * n
     i = torch.arange(nn_, device=fm.device)
     j = i + off
@@ -37,24 +38,25 @@ def _flat_neighbor(fm: torch.Tensor, off: int, n: int) -> Tuple[torch.Tensor, to
     jx = jc // n
     jy = jc % n
     interior = (jx > 0) & (jx < n - 1) & (jy > 0) & (jy < n - 1)
-    return torch.roll(fm, -off), in_range & interior
+    return torch.roll(fm, -off, dims=-1), in_range & interior
 
 
 def dilation_fill(
     map2d: torch.Tensor, mask: torch.Tensor, size: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fill invalid cells from the neighbor minimizing dx+dy (ties: scan
-    order, by the strict ``<``). Returns (filled map, updated mask)."""
+    order, by the strict ``<``). Returns (filled map, updated mask). Maps
+    are (..., H, W); leading axes are a batch."""
     n = map2d.shape[-1]
-    fm = map2d.reshape(-1)
-    fmask = mask.reshape(-1)
+    fm = map2d.flatten(-2)
+    fmask = mask.flatten(-2)
 
     best_dist = torch.full_like(fm, 100.0)
     best_val = torch.zeros_like(fm)
     for dy in range(-size, size + 1):
         for dx in range(-size, size + 1):
             val, ok = _flat_neighbor(fm, n * dy + dx, n)
-            nb_mask = torch.roll(fmask, -(n * dy + dx))
+            nb_mask = torch.roll(fmask, -(n * dy + dx), dims=-1)
             cand = ok & (nb_mask > 0.5) & ((dx + dy) < best_dist)
             best_dist = torch.where(cand, float(dx + dy), best_dist)
             best_val = torch.where(cand, val, best_val)
@@ -63,14 +65,15 @@ def dilation_fill(
     found = invalid & (best_dist < 100.0)
     out = torch.where(found, best_val, fm)
     out_mask = torch.where(found, 1.0, fmask)
-    return out.reshape(n, n), out_mask.reshape(n, n)
+    return out.reshape(map2d.shape), out_mask.reshape(map2d.shape)
 
 
 def surface_normals(map2d: torch.Tensor, mask: torch.Tensor, resolution: float) -> torch.Tensor:
-    """Forward-difference normals (normal_filter_kernel). Returns (3, H, W)."""
+    """Forward-difference normals (normal_filter_kernel). Returns (..., 3,
+    H, W) for (..., H, W) maps."""
     n = map2d.shape[-1]
-    fm = map2d.reshape(-1)
-    fmask = mask.reshape(-1)
+    fm = map2d.flatten(-2)
+    fmask = mask.flatten(-2)
     hx, okx = _flat_neighbor(fm, 1, n)
     hy, oky = _flat_neighbor(fm, n, n)
     ok = (fmask > 0.5) & okx & oky
@@ -79,8 +82,8 @@ def surface_normals(map2d: torch.Tensor, mask: torch.Tensor, resolution: float) 
     nx = -dzdy / resolution
     ny = -dzdx / resolution
     norm = torch.sqrt(nx * nx + ny * ny + 1.0)
-    out = torch.stack([nx / norm, ny / norm, 1.0 / norm])
-    return torch.where(ok, out, 0.0).reshape(3, n, n)
+    out = torch.stack([nx / norm, ny / norm, 1.0 / norm], dim=-2)
+    return torch.where(ok[..., None, :], out, 0.0).reshape(*map2d.shape[:-2], 3, n, n)
 
 
 @functools.lru_cache(maxsize=16)

@@ -126,8 +126,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     if args.from_pointcloud2:
         ap.error("--from-pointcloud2 needs the runtime service's SensorFrame and its native "
-                 "deinterleaver, which come with the runtime slice of the port (ROADMAP.md, "
-                 "slice 6); convert the dump with the JAX package's replay CLI "
+                 "deinterleaver, which come with the runtime slice of the port (ROADMAP.md "
+                 "§A); convert the dump with the JAX package's replay CLI "
                  "(--from-pointcloud2 ... --save-log) and pass the log with --log")
     if not args.log:
         ap.error("--log is required")

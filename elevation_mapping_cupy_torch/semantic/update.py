@@ -56,13 +56,14 @@ def persistent_mask(cfg: MapConfig) -> Tuple[bool, ...]:
 
 def reset_sem_new(sem_new: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
     """Zero the per-update accumulators, except the persistent rows
-    (Dirichlet alpha, class-max sums), which are left bit for bit."""
+    (Dirichlet alpha, class-max sums), which are left bit for bit.
+    ``sem_new`` is (..., S, H, W), leading axes a batch of maps."""
     rows = [i for i, keep in enumerate(persistent_mask(cfg)) if not keep]
-    if not rows or sem_new.shape[0] == 0:
+    if not rows or sem_new.shape[-3] == 0:
         return sem_new
     out = sem_new.clone()
     for i in rows:
-        out[i] = 0.0
+        out[..., i, :, :] = 0.0
     return out
 
 

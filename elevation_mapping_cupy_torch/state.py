@@ -8,6 +8,10 @@ Layer stack layout (indices match reference elevation_mapping.py:69-77, and
 The functions in ``core.py`` take a state and return a new one; they never
 write into the tensors of the state they were given.
 
+A batch of B independent maps is one ``MapState`` whose every field has a
+leading axis of B (:func:`init_batch`, :func:`stack_maps`, :func:`take_map`),
+which ``core.update_batch_aux`` and ``parallel/batch.py`` step.
+
 ``id_max`` is uint32 in the JAX package. PyTorch's uint32 support is thin,
 so the port holds it as int64 and converts at the NumPy boundary
 (``state_to_numpy`` / ``state_from_numpy``).
@@ -15,7 +19,7 @@ so the port holds it as int64 and converts at the NumPy boundary
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, NamedTuple, Union
+from typing import Any, Dict, Mapping, NamedTuple, Sequence, Union
 
 import numpy as np
 import torch
@@ -26,6 +30,10 @@ __all__ = [
     "MapState",
     "STATE_FIELDS",
     "init_state",
+    "init_batch",
+    "stack_maps",
+    "stack_tensors",
+    "take_map",
     "state_from_numpy",
     "state_to_numpy",
     "trav_weights_from_numpy",
@@ -33,7 +41,8 @@ __all__ = [
 
 
 class MapState(NamedTuple):
-    """Full elevation-map state for one environment."""
+    """Full elevation-map state for one environment (or a batch of them:
+    a leading axis on every field)."""
 
     layers: torch.Tensor          # (7, H, W) float32 core layer stack
     normal: torch.Tensor          # (3, H, W) float32 surface normals
@@ -76,6 +85,30 @@ def init_state(
         mean_error=torch.zeros((), dtype=dtype, device=device),
         additive_mean_error=torch.zeros((), dtype=dtype, device=device),
     )
+
+
+def init_batch(
+    cfg: MapConfig, batch: int, device: Union[str, torch.device] = "cuda", dtype=torch.float32
+) -> MapState:
+    """Stack of ``batch`` independent fresh states (leading axis on every
+    field), as ``elevation_mapping_cupy_tpu/parallel/batch.py::init_batch``."""
+    one = init_state(cfg, device, dtype)
+    return MapState(*(x.expand(batch, *x.shape).clone() for x in one))
+
+
+def stack_maps(states: Sequence[MapState]) -> MapState:
+    """One batched state from per-map states (copies)."""
+    return MapState(*(torch.stack(fields) for fields in zip(*states)))
+
+
+def stack_tensors(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-map tensors as one batch; a batch of one is a view of its map."""
+    return xs[0][None] if len(xs) == 1 else torch.stack(list(xs))
+
+
+def take_map(states: MapState, b: int) -> MapState:
+    """Map ``b`` of a batched state (views of its tensors)."""
+    return MapState(*(x[b] for x in states))
 
 
 def state_from_numpy(
