@@ -19,7 +19,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              MapConfig: 100000 points padded to 131072, its map and its
              polar cube's 4718592 bins, colour and class_bayesian) and the
              batched phase's (its three launches at B = 1, 16 and 64 maps
-             of 100000 points), with the call's time
+             of 100000 points) and the semantic sensor path's (a 480x640
+             depth frame's points padded to 524288: geometry and the
+             class_average over three channels), with the call's time
              (CUDA events around the wrapper), the device's own time for it
              (torch.profiler), the plain version's, one PyTorch library
              call's, and the bound (bytes over 3.35 TB/s).
@@ -129,6 +131,48 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              step fed through ``HostFeed``, ``batch_stats`` through NCCL's
              all-reduce and a checkpoint round trip bit for bit; the group
              is torn down before the last line.
+14. service - ``MappingService.from_settings`` with the deployed config and
+             core_param.yaml's ROS-layer keys (literals: the card's machine
+             has no PyYAML) on the card, the native frame ring enabled and
+             one publisher of the deployed layers at 5 fps. First the native
+             code at 131072 points: deinterleave, rgb packing and a ring
+             push/pop equal to their plain versions bit for bit, and their
+             host time. Then 2 warm-up and 12 timed frames: the pose update
+             along the robot's arc, a producer thread pushing the frame's
+             PointCloud2-style records (131072 points of the scene, x/y/z
+             and one padding float, 16 bytes each, 1 % with a NaN
+             coordinate) into the ring, and ``spin_once`` at the frame's
+             time (10 Hz) on the main thread: 3 K1 launches per frame at
+             checked shapes, K2 none; latency median and p90 (each spin
+             ended by a synchronise), frames/s, peak memory, device ms and
+             operations per frame (torch.profiler over 3 more frames). Then
+             one 480x640 rgb image frame (no kernel launch), two submaps
+             (map frame and a yawed request frame) and CheckSafety on one
+             polygon. The CPU port's service takes the same frames, poses,
+             image and queries: the final map within 1e-4 on 99.9 % of
+             cells (colour bit for bit), the submaps likewise, the same
+             safety answer, statistics and publishes. Then the semantic
+             sensor path: ``PointcloudSensorNode(semantic_model="dino_vits8",
+             device="cuda")`` (the full-width vit_small/8 at bf16) turns 3
+             synthetic 480x640 depth+rgb frames into clouds with three DINO
+             channels, which a service on semantic_mem.yaml's tables fuses
+             (rgb -> color, the rest -> class_average): 5 K1 launches per
+             frame, one per fusion present beside the 3 of the geometry, at
+             checked shapes; the same clouds through the CPU port's service
+             give the same map. ``DinoFeaturizer.predict`` at 480x640 is
+             timed on its own.
+15. dino    - vit_small/8 on one 224x224 image, card against the CPU port
+             (the same seeded weights): at float32 tokens and code within
+             1e-4 (TF32 must be off); at bf16 no farther from the CPU's
+             bf16 result, in the maximum and in the mean, than the CPU's
+             bf16 result is from its float32 one on the same image (the
+             card and the CPU add the float32 products of bf16 operands in
+             another order, and twelve blocks amplify each rounding
+             flip). Then bench.py::bench_dino's shapes:
+             ``dino_featurize`` with vit_small/16 on 16 images of 224x224 at
+             bf16: batch ms, frames/s, device ms, the share of device time
+             in matrix products, peak memory, and the FLOPs against the
+             card's bf16 peak.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
@@ -233,6 +277,20 @@ BATCH_TOL = 1e-5
 BATCH_CPU_MAPS = 4
 BATCH_IMAGE_MAPS = 4
 BATCH_IMAGE_SHAPE = (240, 320)
+SERVICE_FRAMES = 12
+SERVICE_WARMUP = 2
+SERVICE_PERIOD = 0.1        # s between frames (the deployed 10 Hz time_interval)
+SERVICE_PUBLISH_FPS = 5.0
+SERVICE_NAN_SHARE = 0.01
+POINT_STEP = 16             # x, y, z and one padding float
+SENSOR_FRAMES = 3
+SENSOR_PREDICT_CALLS = 5
+SENSOR_CHANNELS = ("grass", "tree", "person")
+SENSOR_BUCKET = 1 << 19     # 480 x 640 depth pixels padded to a power of two
+DINO_SIZE = 224
+DINO_BATCH = 16
+DINO_ITERS = 10
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 MEM_CHANNELS = ("rgb", "grass", "tree", "person")
 ALL_FUSIONS_TABLE = (
     ("f_avg", "average"), ("f_bayes", "bayesian_inference"), ("f_dir", "class_bayesian"), ("max_.*", "class_max"),
@@ -298,6 +356,17 @@ def deployed_config():
         tolerance_z_collision=0.10, image_occlusion_mode="shadow",
         max_points=131072,
     )
+
+
+# the ROS-layer keys of configs/core_param.yaml, which
+# MappingService.from_settings wires as from_config does
+# (tests/test_torch_runtime.py holds them to the YAML)
+DEPLOYED_EXTRAS = {
+    "map_frame": "odom", "base_frame": "base_footprint", "corrected_map_frame": "odom",
+    "update_variance_fps": 5.0, "update_pose_fps": 10.0, "map_acquire_fps": 5.0, "publish_statistics_fps": 1.0,
+    "position_lowpass_alpha": 0.2, "orientation_lowpass_alpha": 0.2, "initialize_method": "linear",
+    "use_initializer_at_start": True,
+}
 
 
 def semantic_config():
@@ -500,13 +569,19 @@ def _device_ms(fn, iters: int):
     The tracer now and then drops records at the edge of a window (often
     the window's first kernel), so an operation's time per call is its mean
     over the records that came through times the number of times a call
-    runs it, not its total over ``iters``."""
+    runs it, not its total over ``iters``.
+
+    Now and then the tracer returns no device record at all for a window
+    (seen once in the march phase on one machine): later windows also
+    trace the host, and after five empty windows the time comes from CUDA
+    events around the same calls, named so in the returned operations."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(5):
+        acts = [ProfilerActivity.CUDA] if attempt < 2 else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -516,7 +591,9 @@ def _device_ms(fn, iters: int):
                 e.key[:60]: e.self_device_time_total / e.count * max(1, round(e.count / iters)) / 1e3 for e in dev
             }
             return sum(by_name.values()), by_name
-    raise AssertionError("the profiler saw no device operation in three windows")
+    ms = _events_ms(fn, iters)
+    log(f"device time: the profiler saw no device operation in five windows; CUDA events read {ms} ms a call")
+    return ms, {"cuda_events (no profiler record)": ms}
 
 
 def _cell_indices(rng, b: int, n: int, n_cells: int) -> np.ndarray:
@@ -608,7 +685,7 @@ def phase_kernels(cfg):
     shared-memory path and the cube's the global one."""
     rng = np.random.default_rng(0)
     cells = cfg.cell_n * cfg.cell_n
-    bins = cfg.azimuth_bins * (cfg.n_ray_steps + 2) * cfg.raycast_elevation_bins
+    bins = bins_main = cfg.azimuth_bins * (cfg.n_ray_steps + 2) * cfg.raycast_elevation_bins
     cases = {}
     for n in (MAIN_POINTS, 1 << 20):
         cases[("count", n)] = check_scatter_case(rng, f"error counting N={n}", 1, n, cells, (True, True))
@@ -686,6 +763,19 @@ def phase_kernels(cfg):
             rng, f"batched B={b} point fusion N={n}", b, n, pcells, (False, False, True, True))
         cases[(f"batch{b}_cube", n)] = check_scatter_case(
             rng, f"batched B={b} polar cube N={n} bins={pbins}", b, n, pbins, (True, False))
+    # the semantic sensor path's five launches per frame: a 480x640 depth
+    # frame's points (1 % without a return) padded to SENSOR_BUCKET, on the
+    # deployed map (geometry 3; colour K=4 has the fusion's shape;
+    # class_average over the three DINO channels K=3)
+    n, real = SENSOR_BUCKET, int(0.99 * IMAGE_SHAPE[0] * IMAGE_SHAPE[1])
+    cases[("sensor_count", n)] = check_scatter_case(
+        rng, f"sensor error counting N={n} ({real} real)", 1, n, cells, (True, True), n_real=real)
+    cases[("sensor_fusion", n)] = check_scatter_case(
+        rng, f"sensor point fusion N={n} ({real} real)", 1, n, cells, (False, False, True, True), n_real=real)
+    cases[("sensor_cube", n)] = check_scatter_case(
+        rng, f"sensor polar cube N={n} ({real} real) bins={bins_main}", 1, n, bins_main, (True, False), n_real=real)
+    cases[("sensor_features3", n)] = check_scatter_case(
+        rng, f"sensor class_average K=3 N={n} ({real} real)", 1, n, cells, (False,) * 3, n_real=real)
     for (kind, n), res in cases.items():
         want = "global" if "cube" in kind else "private"
         if res["path"] != want:
@@ -1889,6 +1979,400 @@ def phase_batched(kernel_regs, checked: set):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the runtime service, the sensor sidecar and the DINO ViT
+# ---------------------------------------------------------------------------
+
+def raw_records(pts: np.ndarray, rng: np.random.Generator) -> bytes:
+    """A cloud as PointCloud2-style interleaved records: x, y, z and one
+    padding float per POINT_STEP-byte record, a share of them with a NaN
+    coordinate (no return)."""
+    rec = np.zeros((len(pts), POINT_STEP // 4), np.float32)
+    rec[:, :3] = pts
+    bad = np.flatnonzero(rng.random(len(pts)) < SERVICE_NAN_SHARE)
+    rec[bad, rng.integers(0, 3, bad.size)] = np.nan
+    return rec.tobytes()
+
+
+def service_frames(n: int, seed: int):
+    """(R, t, robot position, raw bytes) of n frames of the scene along
+    ``robot_pose``'s arc."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for k in range(n):
+        R, t, pos = robot_pose(k)
+        frames.append((R, t, pos, raw_records(scene_cloud(rng, MAIN_POINTS, R, t), rng)))
+    return frames
+
+
+def drive_service(svc, frames, sync: bool, first: int = 0) -> list:
+    """Frame by frame: the pose update, a producer thread pushing the raw
+    bytes into the service's ring, then ``spin_once`` at the frame's time on
+    this thread (every torch call happens here). Returns the host time of
+    each ``spin_once``, ended by a synchronise when ``sync``."""
+    import queue
+    import threading
+
+    requests, acks = queue.Queue(), queue.Queue()
+
+    def producer():
+        for item in iter(requests.get, None):
+            R, t, raw, stamp = item
+            acks.put(svc.enqueue_raw_pointcloud(raw, MAIN_POINTS, POINT_STEP, [0, 4, 8], ["x", "y", "z"], R, t,
+                                                stamp=stamp))
+
+    th = threading.Thread(target=producer, daemon=True)
+    th.start()
+    lat = []
+    try:
+        for k, (R, t, pos, raw) in enumerate(frames, start=first):
+            svc.update_pose(pos, R)
+            requests.put((R, t, raw, SERVICE_PERIOD * k))
+            if not acks.get(timeout=120):
+                raise AssertionError(f"service: the ring rejected frame {k}")
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = svc.spin_once(now=SERVICE_PERIOD * (k + 1))
+            if sync:
+                torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            if n != 1:
+                raise AssertionError(f"service: spin_once processed {n} frames, expected 1")
+    finally:
+        requests.put(None)
+        th.join(timeout=60)
+    return lat
+
+
+def service_image_frame(svc):
+    """One 480x640 rgb frame from a camera 1.5 m above a point 0.6 m ahead
+    of the map's centre, looking down (as phase 9)."""
+    from elevation_mapping_cupy_torch.runtime.service import SensorFrame
+
+    H, W = IMAGE_SHAPE
+    img = np.random.default_rng(13).integers(0, 256, (3, H, W)).astype(np.float32)
+    K = np.array([[400.0, 0, W / 2], [0, 400.0, H / 2], [0, 0, 1]], np.float32)
+    R = np.array([[1.0, 0, 0], [0, -1, 0], [0, 0, -1]], np.float32)
+    t = -R @ (svc.mapper.center + np.array([0.6, -0.2, 1.5], np.float32))
+    return SensorFrame(kind="image", channels=("rgb",), data=img, R=R, t=t, K=K, D=np.zeros(5, np.float32))
+
+
+def service_queries(svc) -> dict:
+    """get_submap (map frame and a yawed request frame) and CheckSafety on
+    one polygon about the map's centre."""
+    c = svc.mapper.center
+    yaw = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    out = {f"submap:{k}": v for k, v in svc.get_submap(c[:2] + 0.5, (2.0, 1.6), ["elevation", "traversability"]).items()}
+    out.update({f"submap_yawed:{k}": v for k, v in svc.get_submap(
+        c[:2], (1.6, 1.6), ["elevation"], frame_transform=(yaw, np.array([0.0, 0.0, 0.5]))).items()})
+    (safe, trav, poly), = svc.check_safety([PROFILE_TRIANGLE + c[:2]])
+    return {"layers": out, "safety": (safe, trav, poly.shape)}
+
+
+def check_native() -> dict:
+    """The native deinterleave, rgb packing and frame ring against their
+    plain versions at MAIN_POINTS points, bit for bit, and their host time."""
+    from elevation_mapping_cupy_torch.runtime import native
+
+    rng = np.random.default_rng(14)
+    R, t, _ = robot_pose(0)
+    raw = raw_records(scene_cloud(rng, MAIN_POINTS, R, t), rng)
+    got = native.deinterleave(raw, MAIN_POINTS, POINT_STEP, [0, 4, 8])
+    plain = native.deinterleave(raw, MAIN_POINTS, POINT_STEP, [0, 4, 8], plain=True)
+    if got.shape != plain.shape or not np.array_equal(got.view(np.uint32), plain.view(np.uint32)):
+        raise AssertionError("native: deinterleave differs from its plain version")
+    r, g, b = (rng.integers(0, 256, MAIN_POINTS).astype(np.uint8) for _ in range(3))
+    if not np.array_equal(native.pack_rgb(r, g, b).view(np.uint32), native.pack_rgb(r, g, b, plain=True).view(np.uint32)):
+        raise AssertionError("native: pack_rgb differs from its plain version")
+    ring, plain_ring = native.FrameRing(capacity=4), native.FrameRing(capacity=4, plain=True)
+    payload = np.frombuffer(raw, np.uint8)
+    for rg in (ring, plain_ring):
+        rg.push(b"PC2", payload)
+    (h, p), (ph, pp) = ring.pop(), plain_ring.pop()
+    if h != ph or not np.array_equal(p, pp):
+        raise AssertionError("native: the frame ring returns another frame than its plain version")
+
+    def host_ms(fn, calls=20):
+        fn()
+        ts = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    res = {
+        "points": MAIN_POINTS, "point_step": POINT_STEP, "kept": int(got.shape[0]), "equal_to_plain": True,
+        "deinterleave_ms": host_ms(lambda: native.deinterleave(raw, MAIN_POINTS, POINT_STEP, [0, 4, 8])),
+        "deinterleave_plain_ms": host_ms(lambda: native.deinterleave(raw, MAIN_POINTS, POINT_STEP, [0, 4, 8], plain=True)),
+        "pack_rgb_ms": host_ms(lambda: native.pack_rgb(r, g, b)),
+        "ring_push_pop_ms": host_ms(lambda: (ring.push(b"PC2", payload), ring.pop())),
+        "ring_bytes": len(raw),
+    }
+    log("native: " + json.dumps(res))
+    return res
+
+
+def sensor_frame(k: int):
+    """A synthetic 480x640 depth+rgb frame of the scene from a camera 1.5 m
+    above the robot, looking down (optical frame: x right, y down, z
+    forward), 1 cm of depth noise and 1 % of pixels without a return; and
+    the camera's intrinsics and pose (camera to map)."""
+    rng = np.random.default_rng(100 + k)
+    H, W = IMAGE_SHAPE
+    K = np.array([[400.0, 0, W / 2], [0, 400.0, H / 2], [0, 0, 1]], np.float32)
+    R = np.array([[1.0, 0, 0], [0, -1, 0], [0, 0, -1]], np.float32)
+    _, _, pos = robot_pose(k)
+    cam = pos + np.array([0.6, -0.2, 1.5], np.float32)
+    v, u = np.mgrid[0:H, 0:W].astype(np.float32)
+    x = cam[0] + (u - K[0, 2]) / K[0, 0] * cam[2]
+    y = cam[1] - (v - K[1, 2]) / K[1, 1] * cam[2]
+    h = np.zeros((H, W), np.float32)
+    for x0, y0, x1, y1, bh in BOXES:
+        h[(x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)] = bh
+    depth = (cam[2] - h + rng.normal(0.0, 0.01, (H, W))).astype(np.float32)
+    depth[rng.random((H, W)) < 0.01] = 0.0
+    rgb = np.clip(np.stack([80 + 300 * h, 120 - 100 * h, np.full_like(h, 60)]) + rng.normal(0, 20, (3, H, W)), 0, 255)
+    return depth, rgb.astype(np.uint8), K, R, cam
+
+
+def drive_sensor_semantic(kernel_regs, checked: set) -> dict:
+    """The semantic sensor path: PointcloudSensorNode with the full-width
+    DINO vit_small/8 at bf16 on the card turns SENSOR_FRAMES depth+rgb frames
+    into clouds with SENSOR_CHANNELS, which a MappingService on
+    semantic_mem.yaml's tables fuses (rgb -> color, the rest ->
+    class_average): one K1 launch per fusion present, 5 per frame. The
+    same clouds through the CPU port's service give the same map."""
+    from elevation_mapping_cupy_torch.runtime.service import MappingService, SensorFrame
+    from elevation_mapping_cupy_torch.sensor.pointcloud import PointcloudParameter, PointcloudSensorNode
+
+    node = PointcloudSensorNode(PointcloudParameter(channels=SENSOR_CHANNELS), semantic_model="dino_vits8",
+                                device="cuda")
+    if node.model.cfg.variant != "vit_small" or node.model.cfg.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"sensor: the node runs {node.model.cfg}")
+    cfg = semantic_config()
+    svc, cpu = (MappingService.from_settings(cfg, DEPLOYED_EXTRAS, device=d) for d in ("cuda", "cpu"))
+    depth, rgb, K, R, cam = sensor_frame(0)
+    cloud, names = node(depth, K, rgb=rgb)  # warm-up: cuBLAS plans, the layers grow
+    svc.enqueue(SensorFrame(kind="pointcloud", channels=tuple(names), data=cloud, R=R, t=cam))
+    cpu.enqueue(SensorFrame(kind="pointcloud", channels=tuple(names), data=cloud, R=R, t=cam))
+    svc.spin_once(now=0.0)
+    cpu.spin_once(now=0.0)
+    torch.cuda.synchronize()
+    predict_ms = []
+    for _ in range(SENSOR_PREDICT_CALLS):
+        t0 = time.perf_counter()
+        node.model.predict(rgb)
+        predict_ms.append((time.perf_counter() - t0) * 1e3)
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    lat, node_ms, clouds = [], [], []
+    with k1_shapes() as shapes:
+        for k in range(1, 1 + SENSOR_FRAMES):
+            depth, rgb, K, R, cam = sensor_frame(k)
+            svc.update_pose(robot_pose(k)[2], np.eye(3))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cloud, names = node(depth, K, rgb=rgb)
+            t1 = time.perf_counter()
+            svc.enqueue(SensorFrame(kind="pointcloud", channels=tuple(names), data=cloud, R=R, t=cam))
+            if svc.spin_once(now=SERVICE_PERIOD * k) != 1:
+                raise AssertionError("sensor: the frame was not mapped")
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            node_ms.append((t1 - t0) * 1e3)
+            clouds.append((cloud, names, R, cam))
+    launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    check_launches("sensor (semantic)", launches, SENSOR_FRAMES, {"scatter_add_streams": 5, "exact_march": 0})
+    check_shapes("sensor (semantic)", shapes, checked)
+    if names != ["x", "y", "z", "rgb", *SENSOR_CHANNELS] or not np.isfinite(cloud).all():
+        raise AssertionError(f"sensor: cloud columns {names} or non-finite values")
+    for k, (cloud, names, R, cam) in enumerate(clouds, start=1):
+        cpu.update_pose(robot_pose(k)[2], np.eye(3))
+        cpu.enqueue(SensorFrame(kind="pointcloud", channels=tuple(names), data=cloud, R=R, t=cam))
+        cpu.spin_once(now=SERVICE_PERIOD * k)
+    layer_names = _semantic_names(cfg)
+    cmp_stats = _compare_layers("sensor (semantic)", svc.mapper.get_layers(layer_names),
+                                cpu.mapper.get_layers(layer_names), packed=("rgb",))
+    # the camera's footprint on the ground, in cells
+    footprint = IMAGE_SHAPE[0] * IMAGE_SHAPE[1] * (1.5 / K[0, 0] / cfg.resolution) ** 2
+    fused = min(np.count_nonzero(np.nan_to_num(v)) for v in svc.mapper.get_layers(list(SENSOR_CHANNELS)).values())
+    if fused < 0.5 * footprint:
+        raise AssertionError(f"sensor: a DINO channel was fused into {fused} cells of a {footprint:.0f}-cell footprint")
+    res = {
+        "frames": SENSOR_FRAMES, "image": list(IMAGE_SHAPE), "points": int(len(clouds[-1][0])),
+        "channels": list(SENSOR_CHANNELS), "model": "dino_vits8 (vit_small/8, bf16)",
+        "predict_ms_median": float(np.median(predict_ms)), "predict_ms": predict_ms,
+        "node_ms_median": float(np.median(node_ms)),
+        "frame_latency_ms_median": float(np.median(lat)), "frame_latency_ms": lat,
+        "launches": launches, "k1_launches_per_frame": 5, "k1_shapes": sorted(shapes), "cpu_compare": cmp_stats,
+    }
+    log("sensor (semantic): " + json.dumps(res))
+    return res
+
+
+def phase_service(kernel_regs, checked: set):
+    """The runtime service on the card (module docstring, phase 14)."""
+    from elevation_mapping_cupy_torch.runtime.service import MappingService
+
+    native_res = check_native()
+    cfg = deployed_config()
+    frames = service_frames(SERVICE_WARMUP + SERVICE_FRAMES, seed=12)
+    published = ([], [])
+    svc, cpu = (MappingService.from_settings(cfg, DEPLOYED_EXTRAS, device=dev) for dev in ("cuda", "cpu"))
+    for s, pub in zip((svc, cpu), published):
+        s.enable_raw_ingest()
+        s.add_publisher("elevation_map_raw", LAYERS, SERVICE_PUBLISH_FPS, lambda out, pub=pub: pub.append(sorted(out)))
+    drive_service(svc, frames[:SERVICE_WARMUP], sync=True)
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    with k1_shapes() as shapes:
+        lat = drive_service(svc, frames[SERVICE_WARMUP:], sync=True, first=SERVICE_WARMUP)
+    launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("service", launches, SERVICE_FRAMES, {"scatter_add_streams": 3, "exact_march": 0})
+    check_shapes("service", shapes, checked)
+
+    image = service_image_frame(svc)
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    svc.enqueue(image)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.spin_once(now=SERVICE_PERIOD * (len(frames) + 1))
+    torch.cuda.synchronize()
+    image_ms = (time.perf_counter() - t0) * 1e3
+    image_launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    check_launches("service (image)", image_launches, 1, {"scatter_add_streams": 0, "exact_march": 0})
+    queries = service_queries(svc)
+    query_ms = _latency_ms(lambda: service_queries(svc), calls=5)
+
+    # the same frames, pose updates, image and queries through the CPU port's service
+    drive_service(cpu, frames, sync=False)
+    cpu.enqueue(image)
+    cpu.spin_once(now=SERVICE_PERIOD * (len(frames) + 1))
+    cpu_queries = service_queries(cpu)
+    names = LAYERS + ["rgb"]
+    cmp_stats = _compare_layers("service final map", svc.mapper.get_layers(names), cpu.mapper.get_layers(names),
+                                packed=("rgb",))
+    cmp_stats.update(_compare_layers("service submaps", queries["layers"], cpu_queries["layers"]))
+    safe, trav, shape = queries["safety"]
+    if (safe, shape) != cpu_queries["safety"][::2] or abs(trav - cpu_queries["safety"][1]) > CMP_ATOL:
+        raise AssertionError(f"service: CheckSafety {queries['safety']} on the card, {cpu_queries['safety']} on the CPU")
+    for key in ("frames_processed", "frames_dropped"):
+        if getattr(svc.stats, key) != getattr(cpu.stats, key):
+            raise AssertionError(f"service: statistics {key} differ from the CPU service's")
+    if published[0] != published[1] or not published[0]:
+        raise AssertionError(f"service: {len(published[0])} publishes on the card, {len(published[1])} on the CPU")
+    valid = svc.mapper.get_layers(["is_valid"])["is_valid"] > 0.5
+    if valid.mean() < 0.2:
+        raise AssertionError(f"service: implausible map, {valid.mean():.3f} of cells valid")
+
+    more = service_frames(3, seed=15)
+    prof = profile_calls([
+        lambda R=R, t=t, pos=pos, raw=raw, k=k: (
+            svc.update_pose(pos, R),
+            svc.enqueue_raw_pointcloud(raw, MAIN_POINTS, POINT_STEP, [0, 4, 8], ["x", "y", "z"], R, t),
+            svc.spin_once(now=SERVICE_PERIOD * (len(frames) + 2 + k)))
+        for k, (R, t, pos, raw) in enumerate(more)
+    ])
+    ms = np.array(lat) * 1e3
+    prof["device_busy_share_of_median_latency"] = prof["device_ms_per_update"] / float(np.median(ms))
+    res = {
+        "frames": SERVICE_FRAMES, "points": MAIN_POINTS, "point_step": POINT_STEP,
+        "latency_ms_median": float(np.median(ms)), "latency_ms_p90": float(np.percentile(ms, 90)),
+        "latency_ms": ms.tolist(), "frames_per_s": SERVICE_FRAMES / float(ms.sum() / 1e3),
+        "stats_latency_ms": svc.stats.last_update_latency * 1e3, "stats_fps": svc.stats.pointcloud_process_fps,
+        "publishes": len(published[0]), "launches": launches, "k1_launches_per_frame": 3,
+        "k1_shapes": sorted(shapes), "peak_memory_bytes": int(peak), "image_frame_ms": image_ms,
+        "image_launches": image_launches, "queries": query_ms, "safety": list(map(str, queries["safety"])),
+        "cpu_compare": cmp_stats, "profile": prof, "native": native_res,
+    }
+    log("service: " + json.dumps(res))
+    res["sensor"] = drive_sensor_semantic(kernel_regs, checked)
+    return res
+
+
+def vit_flops(cfg, b: int, h: int, w: int) -> float:
+    """Multiply-adds x 2 of ``dino_featurize`` on b images of h x w."""
+    n_p = (h // cfg.patch_size) * (w // cfg.patch_size)
+    n, d = n_p + 1, cfg.embed_dim
+    hidden = int(d * cfg.mlp_ratio)
+    block = 2 * n * (3 * d * d + d * d + 2 * d * hidden) + 2 * 2 * n * n * d
+    head = 2 * n_p * (d * cfg.dim + d * d + d * cfg.dim)
+    return float(b * (2 * n_p * 3 * cfg.patch_size**2 * d + cfg.depth * block + head))
+
+
+def phase_dino():
+    """The DINO ViT on the card (module docstring, phase 15)."""
+    from elevation_mapping_cupy_torch.sensor import dino as D
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("dino: TF32 is on; float32 products must stay float32")
+    rng = np.random.default_rng(17)
+    res = {"out_dtype_products": D._has_out_dtype()}
+    img = np.random.default_rng(16).normal(0, 1, (1, 3, DINO_SIZE, DINO_SIZE)).astype(np.float32)
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = D.ViTConfig(variant="vit_small", patch_size=8, compute_dtype=dtype)
+        for dev in ("cuda", "cpu"):
+            model = D.DinoFeaturizer(cfg=cfg, seed=0, device=dev).model
+            x = torch.from_numpy(img).to(dev)
+            outs[dtype, dev] = [D.vit_features(model, x, cfg)[0].cpu(), D.dino_featurize(model, x, cfg)[1].cpu()]
+    for dtype in (torch.float32, torch.bfloat16):
+        stats = {}
+        for i, tag in enumerate(("tokens", "code")):
+            g, c = outs[dtype, "cuda"][i], outs[dtype, "cpu"][i]
+            if g.shape != c.shape or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"dino {dtype}: {tag} of shape {tuple(g.shape)} or non-finite")
+            diff = (g - c).abs()
+            st = {"max_abs": float(diff.max()), "mean_abs": float(diff.mean())}
+            if dtype == torch.float32:
+                st["tol"] = CMP_ATOL
+                ok = st["max_abs"] <= CMP_ATOL
+            else:
+                # bf16 rounding noise on this image: the CPU port's bf16
+                # result against its float32 one
+                gap = (c - outs[torch.float32, "cpu"][i]).abs()
+                st["bf16_gap_max"], st["bf16_gap_mean"] = float(gap.max()), float(gap.mean())
+                ok = st["max_abs"] <= st["bf16_gap_max"] and st["mean_abs"] <= st["bf16_gap_mean"]
+            stats[tag] = st
+            if not ok:
+                raise AssertionError(f"dino {dtype}: {tag} off the CPU port by {st}")
+        res[str(dtype).split(".")[-1]] = stats
+    log("dino vs CPU (vit_small/8, 224x224): " + json.dumps(res))
+
+    # bench.py::bench_dino's shapes: vit_small/16, DINO_BATCH images of 224x224, bf16
+    cfg = D.ViTConfig(variant="vit_small", patch_size=16)
+    model = D.init_vit_params(torch.Generator().manual_seed(0), cfg).cuda()
+    imgs = torch.from_numpy(rng.normal(0, 1, (DINO_BATCH, 3, DINO_SIZE, DINO_SIZE)).astype(np.float32)).cuda()
+    fn = lambda: D.dino_featurize(model, imgs, cfg)[1]  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(DINO_ITERS):
+        out = fn()
+    torch.cuda.synchronize()
+    batch_s = (time.perf_counter() - t0) / DINO_ITERS
+    if out.shape != (DINO_BATCH, cfg.dim, DINO_SIZE // 16, DINO_SIZE // 16) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"dino bench: code of shape {tuple(out.shape)} or non-finite")
+    prof = profile_calls([fn] * 3)
+    flops = vit_flops(cfg, DINO_BATCH, DINO_SIZE, DINO_SIZE)
+    bench = {
+        "variant": "vit_small/16", "batch": DINO_BATCH, "image": [DINO_SIZE, DINO_SIZE], "dtype": "bfloat16",
+        "batch_ms": batch_s * 1e3, "frames_per_s": DINO_BATCH / batch_s, "events_ms": _events_ms(fn, DINO_ITERS),
+        "peak_memory_bytes": int(torch.cuda.max_memory_allocated()), "flops": flops,
+        "bound_ms_bf16_peak": flops / BF16_FLOPS_PER_S * 1e3, **prof,
+    }
+    bench["tflops_per_s"] = flops / (bench["device_ms_per_update"] / 1e3) / 1e12
+    log("dino bench (bench_dino shapes): " + json.dumps(bench))
+    res["bench"] = bench
+    return res
+
+
 def profile_updates(em, rng, n_updates: int = 5, pose: int = 300, make_cloud=scene_cloud,
                     channels=("x", "y", "z")) -> dict:
     """Where one update's time goes: torch.profiler over back-to-back
@@ -1918,6 +2402,8 @@ def profile_calls(calls) -> dict:
     dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
+    # cuBLAS (nvjet, *gemm*) and CUTLASS matrix products
+    gemm = [e for e in dev if any(s in e.key.lower() for s in ("gemm", "nvjet", "cutlass", "xmma"))]
     return {
         "updates": n_updates,
         "wall_ms_per_update": wall_us / n_updates / 1e3,
@@ -1927,6 +2413,8 @@ def profile_calls(calls) -> dict:
         "top_device_ms_per_update": {
             e.key[:80]: round(e.self_device_time_total / n_updates / 1e3, 4) for e in top
         },
+        "matmul_share": sum(e.self_device_time_total for e in gemm) / dev_us if dev_us else 0.0,
+        "matmul_kernels": sorted({e.key[:70] for e in gemm}),
     }
 
 
@@ -1934,14 +2422,16 @@ SEMANTIC_CASES = ("features3", "features8", "colour4", "colour3", "count1", "cub
 PLANESEG_CASES = ("planeseg_moments", "planeseg_label_bad", "planeseg_batch_moments", "planeseg_batch_label_bad")
 PROFILE_CASES = ("profile_count", "profile_fusion", "profile_cube", "profile_class_bayesian", "profile_colour4")
 BATCH_CASES = tuple(f"batch{b}_{kind}" for b in BATCH_SIZES for kind in ("count", "fusion", "cube"))
+SENSOR_CASES = ("sensor_count", "sensor_fusion", "sensor_cube", "sensor_features3")
 
 
 def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path_launches: dict) -> dict:
     """One entry per kernel. K1's numbers are those of one update's three
     launches at the main path's cloud size (error counting, fusion, cube),
     summed and, under ``cases``, each on its own together with the semantic
-    fusions', plane segmentation's, the profile path's and the batched
-    phase's shapes, and its launches on the polar main path; its ``max_abs_err`` is the largest of
+    fusions', plane segmentation's, the profile path's, the batched
+    phase's and the semantic sensor path's shapes, and its launches on the
+    polar main path; its ``max_abs_err`` is the largest of
     every timed case. K2's are those
     of the gated march of n_main rays (the router's first choice) and its
     launches on the exact path. ``launches_by_path`` holds every driven
@@ -1953,7 +2443,8 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path
     listed = (shapes + [cases[(c, n_main)] for c in SEMANTIC_CASES]
               + [cases[(c, PLANESEG_N * PLANESEG_N)] for c in PLANESEG_CASES]
               + [cases[(c, PROFILE_BUCKET)] for c in PROFILE_CASES]
-              + [cases[(c, BATCH_POINTS)] for c in BATCH_CASES])
+              + [cases[(c, BATCH_POINTS)] for c in BATCH_CASES]
+              + [cases[(c, SENSOR_BUCKET)] for c in SENSOR_CASES])
     total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
     by_path = lambda name: {path: counts[name] for path, counts in path_launches.items()}  # noqa: E731
     return {
@@ -2029,6 +2520,8 @@ def main(argv=None) -> int:
     planeseg_res = timed("planeseg", phase_planeseg, regs, checked)
     profile_table, profile_launches, profile_cmp = timed("profile", phase_profile, regs, checked)
     batched_res = timed("batched", phase_batched, regs, checked)
+    service_res = timed("service", phase_service, regs, checked)
+    dino_res = timed("dino", phase_dino)
     log(f"total: {time.perf_counter() - t0:.1f} s")
     path_launches = {
         "polar": launches, "exact": exact_launches, "semantic_mem": mem_res["launches"],
@@ -2038,6 +2531,8 @@ def main(argv=None) -> int:
         "planeseg": planeseg_res["launches"], "planeseg_batch": planeseg_res["batch_launches"],
         "profile": profile_launches,
         **{f"batched_B{b}": batched_res["per_batch"][str(b)]["launches"] for b in BATCH_SIZES},
+        "service": service_res["launches"], "service_image": service_res["image_launches"],
+        "sensor_semantic": service_res["sensor"]["launches"],
     }
     line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS, path_launches)
     if args.json:
@@ -2047,6 +2542,7 @@ def main(argv=None) -> int:
                 "semantic_mem": mem_res, "semantic_all_fusions": allf_res, "image": image_res,
                 "plugins": plugin_res, "planeseg": planeseg_res, "batched": batched_res,
                 "profile": {"stages": profile_table, "launches": profile_launches, "cpu_compare": profile_cmp},
+                "service": service_res, "dino": dino_res,
                 "scatter_cases": list(cases.values()),
                 "march_cases": list(march_cases.values()) + list(fresh_cases.values()),
             }, f, indent=1)

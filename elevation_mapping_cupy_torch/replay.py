@@ -13,6 +13,13 @@ The port's counterpart of ``python -m elevation_mapping_cupy_tpu.replay``
   .npz with ``n_frames``, ``channels`` and per-frame ``f{i}_points`` (N, C)
   f32, ``f{i}_R`` (3,3), ``f{i}_t`` (3,), ``f{i}_position`` (3,),
   ``f{i}_stamp``.
+* ``--from-pointcloud2`` - converts a RAW PointCloud2 dump into that schema
+  first (``convert_pointcloud2_npz``, written to ``--save-log``, or to
+  ``--log`` when only that is given): per-frame ``f{i}_data`` (uint8 raw
+  buffer), ``f{i}_n_points``, ``f{i}_point_step``, ``f{i}_offsets`` (byte
+  offsets of the float32 fields, x/y/z first), R/t/position/stamp, and a
+  global ``channels``; the byte layout the reference's C++ node consumes
+  (elevation_mapping_ros.cpp:330-339).
 * ``--diff-against`` - an .npz of per-frame reference layers with keys
   ``f{i}_<layer>`` of shape (cell_n-2, cell_n-2), the schema ``--out``
   writes, so a replay by either package diffs directly.
@@ -38,9 +45,39 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from .config import MapConfig, load_config
-from .runtime.replay import read_log, replay
+from .runtime.replay import LogWriter, read_log, replay
 
-__all__ = ["diff_snapshots", "main"]
+__all__ = ["convert_pointcloud2_npz", "diff_snapshots", "main"]
+
+
+def convert_pointcloud2_npz(src: str, dst: str) -> int:
+    """RAW PointCloud2-style dump -> engine log schema. Returns n_frames.
+
+    Deinterleaving runs through the native code
+    (runtime/native/pointcloud_native.cc), the path the live service uses,
+    so a converted log replays exactly as live ingest would have mapped it.
+    """
+    from .runtime.service import SensorFrame
+
+    with np.load(src, allow_pickle=True) as z:
+        n = int(z["n_frames"])
+        channels = [str(c) for c in z["channels"].tolist()]
+        w = LogWriter(channels=channels)
+        for i in range(n):
+            frame = SensorFrame.from_pointcloud2(
+                z[f"f{i}_data"].tobytes(),
+                int(z[f"f{i}_n_points"]),
+                int(z[f"f{i}_point_step"]),
+                [int(o) for o in z[f"f{i}_offsets"]],
+                channels,
+                z[f"f{i}_R"],
+                z[f"f{i}_t"],
+                float(z[f"f{i}_stamp"]),
+            )
+            pos = z[f"f{i}_position"] if f"f{i}_position" in z else z[f"f{i}_t"]
+            w.add(frame.data, frame.R, frame.t, position=pos, stamp=frame.stamp)
+    w.save(dst)
+    return n
 
 
 def _load_layer_dump(path: str, layers: Sequence[str]) -> List[Dict[str, np.ndarray]]:
@@ -108,7 +145,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     )
     ap.add_argument("--log", help="engine log .npz (LogWriter schema)")
     ap.add_argument("--from-pointcloud2",
-                    help="RAW PointCloud2 dump .npz to convert first (not ported yet)")
+                    help="RAW PointCloud2 dump .npz to convert first")
+    ap.add_argument("--save-log",
+                    help="with --from-pointcloud2: where to write the converted engine log")
     ap.add_argument("--config", default=None,
                     help="YAML config (default: configs/core_param.yaml); needs PyYAML")
     ap.add_argument("--layers", default="elevation,traversability,is_valid")
@@ -124,13 +163,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="torch device of the map (default cuda; cpu runs the kernels' plain versions)")
     args = ap.parse_args(argv)
 
+    log_path = args.log
     if args.from_pointcloud2:
-        ap.error("--from-pointcloud2 needs the runtime service's SensorFrame and its native "
-                 "deinterleaver, which come with the runtime slice of the port (ROADMAP.md "
-                 "§A); convert the dump with the JAX package's replay CLI "
-                 "(--from-pointcloud2 ... --save-log) and pass the log with --log")
-    if not args.log:
-        ap.error("--log is required")
+        if not args.save_log and not log_path:
+            ap.error("--from-pointcloud2 needs --save-log (or --log to name the converted file)")
+        dst = args.save_log or log_path
+        n = convert_pointcloud2_npz(args.from_pointcloud2, dst)
+        print(json.dumps({"converted": args.from_pointcloud2, "log": dst, "n_frames": n}))
+        log_path = dst
+    if not log_path:
+        ap.error("--log is required (or --from-pointcloud2 with --save-log)")
 
     cfg_path = args.config or os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "core_param.yaml"
@@ -146,11 +188,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     else:
         cfg = MapConfig()
     # size the padded point bucket to the log's largest cloud
-    biggest = max((f["points"].shape[0] for f in read_log(args.log)), default=0)
+    biggest = max((f["points"].shape[0] for f in read_log(log_path)), default=0)
     if biggest > cfg.max_points:
         cfg = dataclasses.replace(cfg, max_points=biggest)
     layers = [l for l in args.layers.split(",") if l]
-    snaps = replay(args.log, cfg, snapshot_layers=layers, raycast_mode=args.raycast_mode, device=args.device)
+    snaps = replay(log_path, cfg, snapshot_layers=layers, raycast_mode=args.raycast_mode, device=args.device)
 
     if args.out:
         _save_snapshots(args.out, snaps)

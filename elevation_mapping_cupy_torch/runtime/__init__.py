@@ -1,1 +1,2 @@
-"""Host-side runtime of the PyTorch port: log replay and fault injection."""
+"""Host-side runtime of the PyTorch port: the mapping service with its
+native frame ring, log replay and fault injection."""

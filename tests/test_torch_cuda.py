@@ -1,6 +1,7 @@
 """The PyTorch port on a CUDA card: kernels K1 and K2 and the updates through
 them, the semantic fusions, the image path, post-processing (stencil
-filters, plugins, polygon mask, grid-map filters) and plane segmentation.
+filters, plugins, polygon mask, grid-map filters), plane segmentation,
+the runtime service and the DINO ViT.
 
 Every test here needs the card and is marked ``cuda``; without one it
 skips. The file imports no JAX, so it also runs where JAX is not
@@ -693,3 +694,85 @@ def test_batched_move_to_on_card_is_bitwise(card):
         one = core.move_to(take_map(states, b), pos[b], Rs[b], cfg)
         for name, x, y in zip(moved._fields, take_map(moved, b), one):
             assert torch.equal(x, y), f"map {b} {name}"
+
+
+def test_service_raw_ingest_on_card_matches_cpu(card):
+    """MappingService on the card: raw PointCloud2-style frames through the
+    native ring, 3 K1 launches per frame, the final map equal to the CPU
+    service's within 1e-4 on 99.9 % of cells."""
+    from elevation_mapping_cupy_torch.runtime.service import MappingService
+
+    cfg = MapConfig(resolution=0.1, map_length=4.0, max_ray_length=2.0, max_points=8192)
+    rng = np.random.default_rng(3)
+    frames = []
+    for k in range(3):
+        R, t, pos = chip_smoke.robot_pose(k)
+        frames.append((R, t, pos, chip_smoke.raw_records(chip_smoke.scene_cloud(rng, 8192, R, t, r_max=1.8), rng)))
+    maps = []
+    for dev in ("cuda", "cpu"):
+        svc = MappingService(cfg, device=dev)
+        svc.enable_raw_ingest()
+        before = cuda_scatter.KERNEL.launches
+        for k, (R, t, pos, raw) in enumerate(frames):
+            svc.update_pose(pos, R)
+            assert svc.enqueue_raw_pointcloud(raw, 8192, chip_smoke.POINT_STEP, [0, 4, 8], ["x", "y", "z"], R, t)
+            assert svc.spin_once(now=0.1 * (k + 1)) == 1
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert cuda_scatter.KERNEL.launches == before + 9
+            assert svc.mapper.state.layers.device.type == "cuda"
+        maps.append(svc.mapper.get_layers(chip_smoke.LAYERS))
+    for name in chip_smoke.LAYERS:
+        a, b = maps[0][name], maps[1][name]
+        close = (np.isnan(a) & np.isnan(b)) | (np.abs(np.nan_to_num(a, nan=1e9) - np.nan_to_num(b, nan=1e9)) <= 1e-4)
+        assert close.mean() >= 0.999, name
+
+
+@pytest.mark.parametrize("dtype,tok_tol,code_tol", [("float32", 1e-4, 1e-4), ("bfloat16", 2e-2, 5e-3)])
+def test_dino_on_card_matches_cpu(card, dtype, tok_tol, code_tol):
+    """The ViT on the card against the CPU port with the same seeded weights
+    (vit_tiny/8, 64x48): float32 within 1e-4, bf16 tokens within 2e-2 and
+    code within 5e-3."""
+    from elevation_mapping_cupy_torch.sensor import dino as D
+
+    cfg = D.ViTConfig(variant="vit_tiny", patch_size=8, dim=12, compute_dtype=getattr(torch, dtype))
+    model = D.init_vit_params(torch.Generator().manual_seed(7), cfg)
+    img = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 3, 64, 48)).astype(np.float32))
+    want = D.vit_features(model, img, cfg)[0], D.dino_featurize(model, img, cfg)[1]
+    model = model.to(card)
+    got = D.vit_features(model, img.to(card), cfg)[0], D.dino_featurize(model, img.to(card), cfg)[1]
+    for g, w, tol in zip(got, want, (tok_tol, code_tol)):
+        assert g.device.type == "cuda" and g.dtype == torch.float32
+        assert float((g.cpu() - w).abs().max()) <= tol
+
+
+def test_sensor_node_on_card(card):
+    """PointcloudSensorNode with a DINO model on the card: the same cloud as
+    the CPU node's (seed 0 weights), DINO channels within 5e-3 at bf16."""
+    from elevation_mapping_cupy_torch.sensor.pointcloud import PointcloudParameter, PointcloudSensorNode
+
+    depth, rgb, K, _, _ = chip_smoke.sensor_frame(0)
+    depth, rgb = depth[:96, :128], rgb[:, :96, :128]
+    param = PointcloudParameter(channels=("a", "b"))
+    clouds = [PointcloudSensorNode(param, semantic_model="dino_vits16", device=dev)(depth, K, rgb=rgb)
+              for dev in ("cuda", "cpu")]
+    (c_gpu, names), (c_cpu, names_cpu) = clouds
+    assert names == names_cpu == ["x", "y", "z", "rgb", "a", "b"]
+    np.testing.assert_array_equal(c_gpu[:, :4].view(np.uint32), c_cpu[:, :4].view(np.uint32))
+    assert np.abs(c_gpu[:, 4:] - c_cpu[:, 4:]).max() <= 5e-3
+
+
+def test_resolve_model_propagates_card_errors(card):
+    """An out-of-memory error on the card is a RuntimeError: resolve_model
+    lets it through instead of answering with random features."""
+    from elevation_mapping_cupy_torch.sensor import networks
+
+    def huge(**kw):
+        return torch.empty(1 << 46, device=card)
+
+    networks.MODELS["huge_for_test"] = huge
+    try:
+        with pytest.raises(torch.OutOfMemoryError):
+            networks.resolve_model("huge_for_test", channels=["a"], device=card)
+    finally:
+        del networks.MODELS["huge_for_test"]

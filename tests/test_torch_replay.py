@@ -131,12 +131,9 @@ def test_cli_out_diff_and_device(tmp_path, log_path, cfg_yaml, capsys):
 
 
 def test_cli_refusals(tmp_path, log_path, cfg_yaml, monkeypatch, capsys):
-    """What the CLI cannot do yet, or here, fails with a message that says
-    why: PointCloud2 conversion (the runtime slice), a YAML config without
-    PyYAML, and the default device without a card."""
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--from-pointcloud2", str(tmp_path / "raw.npz")])
-    assert e.value.code == 2 and "runtime slice" in capsys.readouterr().err
+    """What the CLI cannot do here fails with a message that says why: no
+    log, a YAML config without PyYAML, and the default device without a
+    card."""
     with pytest.raises(SystemExit):
         cli.main(["--config", cfg_yaml])
     assert "--log is required" in capsys.readouterr().err
@@ -150,3 +147,65 @@ def test_cli_refusals(tmp_path, log_path, cfg_yaml, monkeypatch, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(["--log", log_path, "--config", cfg_yaml])
+
+
+def raw_dump(path, n_frames=3, n_points=600, seed=21):
+    """A RAW PointCloud2-style dump: x, y, z, a pad and intensity per 20-byte
+    record, a few records with a NaN coordinate, one frame without its
+    position."""
+    rng = np.random.default_rng(seed)
+    arrays = {"n_frames": np.int64(n_frames), "channels": np.array(["x", "y", "z", "intensity"], dtype=object)}
+    for i in range(n_frames):
+        rec = np.zeros((n_points, 5), np.float32)
+        rec[:, :2] = rng.uniform(-0.9, 0.9, (n_points, 2))
+        rec[:, 2] = rng.uniform(-0.1, 0.2, n_points)
+        rec[:, 4] = rng.uniform(0, 1, n_points)
+        rec[rng.integers(0, n_points, 5), rng.integers(0, 3, 5)] = np.nan
+        arrays[f"f{i}_data"] = rec.view(np.uint8).reshape(-1)
+        arrays[f"f{i}_n_points"] = np.int64(n_points)
+        arrays[f"f{i}_point_step"] = np.int64(20)
+        arrays[f"f{i}_offsets"] = np.array([0, 4, 8, 16], np.int64)
+        arrays[f"f{i}_R"] = np.eye(3, dtype=np.float32)
+        arrays[f"f{i}_t"] = np.array([0.02 * i, 0, 0.5], np.float32)
+        arrays[f"f{i}_stamp"] = np.float64(0.1 * i)
+        if i != 1:
+            arrays[f"f{i}_position"] = np.array([0.02 * i, 0, 0], np.float32)
+    np.savez(path, **arrays)
+    return path
+
+
+def test_from_pointcloud2_matches_jax(tmp_path, cfg_yaml, capsys):
+    """A seeded raw dump converted by both packages' converters, and by both
+    CLIs with --from-pointcloud2 --save-log: the logs hold the same arrays;
+    the port's CLI then replays its converted log like the JAX CLI does."""
+    raw = raw_dump(str(tmp_path / "raw.npz"))
+    assert cli.convert_pointcloud2_npz(raw, str(tmp_path / "mine.npz")) == 3
+    assert jax_cli.convert_pointcloud2_npz(raw, str(tmp_path / "theirs.npz")) == 3
+
+    def same_logs(a, b):
+        with np.load(a, allow_pickle=True) as x, np.load(b, allow_pickle=True) as y:
+            assert sorted(x.files) == sorted(y.files)
+            for k in x.files:
+                assert x[k].dtype == y[k].dtype and x[k].shape == y[k].shape, k
+                if x[k].dtype == object:
+                    assert x[k].tolist() == y[k].tolist(), k
+                else:
+                    np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+
+    same_logs(str(tmp_path / "mine.npz"), str(tmp_path / "theirs.npz"))
+    frames = list(read_log(str(tmp_path / "mine.npz")))
+    assert [f["points"].shape[1] for f in frames] == [4, 4, 4]
+    assert all(np.isfinite(f["points"]).all() and 590 <= len(f["points"]) < 600 for f in frames)
+
+    base = ["--from-pointcloud2", raw, "--config", cfg_yaml, "--layers", "elevation,is_valid"]
+    mine_out, theirs_out = str(tmp_path / "mine_out.npz"), str(tmp_path / "theirs_out.npz")
+    assert cli.main(base + ["--save-log", str(tmp_path / "cli_mine.npz"), "--out", mine_out, "--device", "cpu"]) == 0
+    assert '"converted"' in capsys.readouterr().out
+    assert jax_cli.main(base + ["--save-log", str(tmp_path / "cli_theirs.npz"), "--out", theirs_out]) == 0
+    same_logs(str(tmp_path / "cli_mine.npz"), str(tmp_path / "cli_theirs.npz"))
+    same_logs(str(tmp_path / "cli_mine.npz"), str(tmp_path / "mine.npz"))
+    assert cli.main(["--log", str(tmp_path / "cli_mine.npz"), "--config", cfg_yaml, "--layers", "elevation,is_valid",
+                     "--device", "cpu", "--diff-against", theirs_out]) == 0
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--from-pointcloud2", raw])
+    assert e.value.code == 2 and "--save-log" in capsys.readouterr().err
