@@ -21,7 +21,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              batched phase's (its three launches at B = 1, 16 and 64 maps
              of 100000 points) and the semantic sensor path's (a 480x640
              depth frame's points padded to 524288: geometry and the
-             class_average over three channels), with the call's time
+             class_average over three channels) and the spatial phase's
+             (error counting and point fusion on every block its processes
+             compute on, untimed), with the call's time
              (CUDA events around the wrapper), the device's own time for it
              (torch.profiler), the plain version's, one PyTorch library
              call's, and the bound (bytes over 3.35 TB/s).
@@ -42,7 +44,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              device), the plain version's, and the bound from the work the
              plain version tallied on the same inputs. The same four cases
              on the map before it is aged (no cell can be hit yet) give the
-             gated march against the flat one on a fresh map.
+             gated march against the flat one on a fresh map. Then K2 with
+             block bounds: two row blocks and a tile of the aged map, gate
+             on and off, and every block the spatial phase launches it on,
+             each against its plain version on the block and against the
+             unblocked launch's cells there.
 6. exact   - the same deployed config with ``raycast_mode="exact"``: 8
              updates of 131072 points with the gated/flat router live (353
              steps x 131072 points >= 1 << 20); every update must launch K2
@@ -173,6 +179,22 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              bf16: batch ms, frames/s, device ms, the share of device time
              in matrix products, peak memory, and the FLOPs against the
              card's bf16 peak.
+16. spatial - one map sharded over processes that share the card, gloo
+             carrying the halos through host memory (the machine has one
+             card, and NCCL takes one rank a card): the JAX package's
+             1024-cell spatial test config (8192 points, the exact march:
+             K2 with block bounds) and core_param.yaml at 40.88 m (1024 x
+             1024 cells, 131072 points, the polar cleanup), each without a
+             group (the step is ``core.update_pointcloud``; on the card
+             two runs of it differ in ulps, K1's atomics adding in any
+             order),
+             then in a world of 2 processes (rows) and of 4 (2x2 tiles)
+             spawned as ``chip_smoke.py --spatial-worker``: 4 updates (one
+             a warm-up), the gathered map and a sharded ``move_to`` against
+             the unsharded card update (1e-5 on 99.9 % of cells), K1 and
+             K2 launched per process per step as the path must, at shapes
+             the kernels and march phases checked, and each world's step
+             ms. A rank that fails or outlasts 300 s fails the run.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
@@ -287,6 +309,15 @@ SENSOR_FRAMES = 3
 SENSOR_PREDICT_CALLS = 5
 SENSOR_CHANNELS = ("grass", "tree", "person")
 SENSOR_BUCKET = 1 << 19     # 480 x 640 depth pixels padded to a power of two
+# the spatial phase: one map sharded over processes that share the card
+# (gloo carries the halos through host memory)
+SPATIAL_STEPS = 4            # one warm-up and three timed updates a world
+SPATIAL_WORLDS = {2: ((2,), ("x",), None), 4: ((2, 2), ("x", "y"), "y")}  # rows; 2x2 tiles
+SPATIAL_TIMEOUT_S = 300
+SPATIAL_TOL = 1e-5
+SPATIAL_MOVE = {"exact1024": (0.5, -0.3, 0.1), "polar1024": (1.0, -0.6, 0.0)}
+SPATIAL_LAUNCHES = {"exact1024": {"scatter_add_streams": 2, "exact_march": 1},
+                    "polar1024": {"scatter_add_streams": 3, "exact_march": 0}}
 DINO_SIZE = 224
 DINO_BATCH = 16
 DINO_ITERS = 10
@@ -776,8 +807,9 @@ def phase_kernels(cfg):
         rng, f"sensor polar cube N={n} ({real} real) bins={bins_main}", 1, n, bins_main, (True, False), n_real=real)
     cases[("sensor_features3", n)] = check_scatter_case(
         rng, f"sensor class_average K=3 N={n} ({real} real)", 1, n, cells, (False,) * 3, n_real=real)
+    cases.update(spatial_k1_cases(rng))
     for (kind, n), res in cases.items():
-        want = "global" if "cube" in kind else "private"
+        want = "global" if "cube" in kind or kind.startswith("spatial") else "private"
         if res["path"] != want:
             raise AssertionError(f"K1 {kind} N={n} took the {res['path']} path, expected {want}")
     check_scatter_case(rng, "zero points", 1, 0, cells, (True, True), timed=False)
@@ -1049,6 +1081,7 @@ def phase_march(cfg, mapped_state):
                      "survivor_frac": group[(n, True)]["counts"][0] / max(group[(n, True)]["counts"][1], 1)}
             for n in MARCH_RAYS
         }))
+    blocked = phase_march_blocks(state, ecfg, rng)
     # edge cases: no rays (no launch), every ray masked (a launch, no writes)
     pack, world, valid, t, gate = march_inputs(state, ecfg, 4096, rng, True)
     before = cm.KERNEL.launches
@@ -1061,7 +1094,369 @@ def phase_march(cfg, mapped_state):
         if r.counts.tolist() != [0, 0] or float(r.hits.sum()) != 0 or not bool(torch.isinf(r.ubmin).all()):
             raise AssertionError(f"K2 {tag} march wrote something")
     log("kernel check: exact march empty and all-masked: nothing written")
-    return cases, fresh
+    return cases, fresh, blocked
+
+
+# ---------------------------------------------------------------------------
+# K2 with block bounds, and the spatial phase
+# ---------------------------------------------------------------------------
+
+def spatial_configs():
+    """name -> (MapConfig, points per update): the JAX package's 1024-cell
+    spatial test config (tests/test_parallel.py, 8192 points; the exact
+    march) and core_param.yaml at 1024 x 1024 cells of 0.04 m (the polar
+    cleanup) at the main path's cloud size."""
+    from elevation_mapping_cupy_torch.config import MapConfig
+
+    return {
+        "exact1024": (MapConfig(resolution=0.1, map_length=102.2, max_ray_length=0.5, max_points=8192), 8192),
+        "polar1024": (deployed_config().replace(map_length=40.88), MAIN_POINTS),
+    }
+
+
+def spatial_clouds(name: str, n: int) -> list:
+    """The SPATIAL_STEPS updates' (points, R, t) of a spatial config, from
+    seed 7: tests/test_parallel.py's 1024 cloud, or the scene seen from the
+    robot's first poses."""
+    rng = np.random.default_rng(7)
+    out = []
+    for k in range(SPATIAL_STEPS):
+        if name == "exact1024":
+            pts = rng.uniform(-50, 50, (n, 3)).astype(np.float32)
+            pts[:, 2] = rng.uniform(-0.1, 0.3, n).astype(np.float32)
+            out.append((pts, np.eye(3, dtype=np.float32), np.array([0, 0, 0.5], np.float32)))
+        else:
+            R, t, _ = robot_pose(k)
+            out.append((scene_cloud(rng, n, R, t), R, t))
+    return out
+
+
+def spatial_shards(cfg) -> list:
+    """Every (world size, rank, SpatialShard) of the spatial worlds for
+    ``cfg``, from the layout alone."""
+    from elevation_mapping_cupy_torch.parallel.halo import Axis
+    from elevation_mapping_cupy_torch.parallel.spatial import SpatialSharding, ghost_width
+
+    out = []
+    for size, (shape, _, col_axis) in SPATIAL_WORLDS.items():
+        nr, nc = shape[0], (shape[1] if col_axis else 1)
+        for rank in range(size):
+            i, j = divmod(rank, nc)
+            lay = SpatialSharding(Axis(tuple(range(nr)), i, None), Axis(tuple(range(nc)), j, None))
+            out.append((size, rank, lay.shard(cfg.cell_n, ghost_width(cfg))))
+    return out
+
+
+def spatial_k1_cases(rng) -> dict:
+    """K1 at the spatial phase's launches: error counting and point fusion
+    of each config on every block its worlds give a process (and on the
+    whole map, without a group), untimed; its cube is the main path's."""
+    cases = {}
+    for name, (scfg, n) in spatial_configs().items():
+        for cells in spatial_block_cells(scfg):
+            cases[(f"spatial_{name}_count_{cells}", n)] = check_scatter_case(
+                rng, f"spatial {name} error counting N={n} cells={cells}", 1, n, cells, (True, True), timed=False)
+            cases[(f"spatial_{name}_fusion_{cells}", n)] = check_scatter_case(
+                rng, f"spatial {name} point fusion N={n} cells={cells}", 1, n, cells, (False, False, True, True),
+                timed=False)
+    return cases
+
+
+def spatial_block_cells(cfg) -> list:
+    """The cell counts of the blocks the spatial phase's processes compute
+    on, and the whole map's."""
+    return sorted({cfg.cell_n ** 2} | {s.block.h * s.block.w for _, _, s in spatial_shards(cfg)})
+
+
+def check_block_march(state, cfg, world, valid, t, blk, gated: bool, whole, label: str) -> dict:
+    """K2 with block bounds against its plain version on the same block,
+    and against ``whole``, the unblocked launch: the block's hit counts and
+    upper bounds are the whole map's there, its decrement within 2e-4."""
+    from elevation_mapping_cupy_torch.ops import cuda_march as cm, raycast
+
+    sl = (slice(blk.r0, blk.r0 + blk.h), slice(blk.c0, blk.c0 + blk.w))
+    pack = raycast.exact_precompute(state.layers[:, sl[0], sl[1]], state.normal[:, sl[0], sl[1]],
+                                    torch.zeros_like(state.layers[0, sl[0], sl[1]]), cfg)
+    gate = raycast.exact_gate(pack, cfg, blk) if gated else None
+    got = cm.exact_march(pack, world, valid, t, cfg, gate, blk)
+    want = cm.exact_march_reference(pack, world, valid, t, cfg, gate, block=blk)
+    torch.cuda.synchronize()
+    n = cfg.cell_n
+    part = lambda x: x.reshape(n, n)[sl].reshape(-1)  # noqa: E731
+    whole = whole._replace(dec=part(whole.dec), hits=part(whole.hits), ubmin=part(whole.ubmin))
+    for tag, a, b in (("plain version", got, want), ("whole map", got, whole)):
+        if not torch.equal(a.hits, b.hits) or not torch.equal(a.ubmin, b.ubmin):
+            raise AssertionError(f"{label}: hit counts or upper bounds differ from the {tag}'s")
+        rel = float(((a.dec - b.dec).abs() / b.dec.abs().clamp(min=1.0)).max())
+        if rel > VALUE_TOL:
+            raise AssertionError(f"{label}: decrement off the {tag}'s by {rel} (relative)")
+    if gated and not torch.equal(got.counts, want.counts):
+        raise AssertionError(f"{label}: segment counts {got.counts.tolist()} vs {want.counts.tolist()}")
+    res = {"case": label, "rays": int(world.shape[0]), "block": list(blk[:4]), "gated": gated,
+           "hits": int(got.hits.sum()), "ub_cells": int(torch.isfinite(got.ubmin).sum()),
+           "max_abs_err": float((got.dec - want.dec).abs().max()),
+           "counts": got.counts.tolist() if gated else None,
+           "kernel_ms": _events_ms(lambda: cm.exact_march(pack, world, valid, t, cfg, gate, blk), 10)}
+    log("kernel check: " + json.dumps(res))
+    return res
+
+
+def phase_march_blocks(state, ecfg, rng) -> list:
+    """K2 with block bounds: on the aged deployed map, two row blocks and a
+    tile, gate on and off; then at the spatial phase's exact config, every
+    block its worlds launch K2 on (no gate, as that config resolves), on a
+    map of one card update. Returns the cases' results."""
+    from elevation_mapping_cupy_torch import core
+    from elevation_mapping_cupy_torch.nn.traversability import DEFAULT_WEIGHT_FILE, load_weights_npz
+    from elevation_mapping_cupy_torch.ops import cuda_march as cm, geometry, raycast
+    from elevation_mapping_cupy_torch.ops.geometry import Block
+    from elevation_mapping_cupy_torch.state import init_state
+
+    out = []
+    n = ecfg.cell_n
+    for gated in (True, False):
+        pack, world, valid, t, gate = march_inputs(state, ecfg, MAIN_POINTS, rng, gated)
+        whole = cm.exact_march(pack, world, valid, t, ecfg, gate)
+        for blk in (Block(0, 0, n // 2 + 7, n, n, n), Block(n // 2 - 7, 0, n - n // 2 + 7, n, n, n),
+                    Block(n // 2 - 7, n // 2 - 7, n - n // 2 + 7, n - n // 2 + 7, n, n)):
+            out.append(check_block_march(
+                state, ecfg, world, valid, t, blk, gated, whole,
+                f"exact march N={MAIN_POINTS} block {tuple(blk[:4])} {'gated' if gated else 'ungated'}"))
+    scfg, n_pts = spatial_configs()["exact1024"]
+    pts, R, t_np = spatial_clouds("exact1024", n_pts)[0]
+    w = load_weights_npz(DEFAULT_WEIGHT_FILE).to("cuda")
+    t = torch.from_numpy(t_np).cuda()
+    mapped = core.update_pointcloud(init_state(scfg, "cuda"), torch.from_numpy(pts).cuda(),
+                                    torch.ones(n_pts, dtype=torch.bool, device="cuda"), torch.from_numpy(R).cuda(),
+                                    t, 0.0, 0.0, w, scfg)
+    for _ in range(7):
+        mapped = core.update_time(mapped, scfg)
+    pts, R, _ = spatial_clouds("exact1024", n_pts)[1]
+    assoc = geometry.associate_points(torch.from_numpy(pts).cuda(), torch.ones(n_pts, dtype=torch.bool, device="cuda"),
+                                      torch.from_numpy(R).cuda(), t, scfg)
+    pack = raycast.exact_precompute(mapped.layers, mapped.normal, torch.zeros_like(mapped.layers[0]), scfg)
+    whole = cm.exact_march(pack, assoc.world, assoc.valid, t, scfg)
+    blocks = {s.block for _, _, s in spatial_shards(scfg)} | {Block.whole(scfg.cell_n, scfg.cell_n)}
+    for blk in sorted(blocks):
+        out.append(check_block_march(mapped, scfg, assoc.world, assoc.valid, t, blk, False, whole,
+                                     f"spatial exact1024 march N={n_pts} block {tuple(blk[:4])}"))
+    return out
+
+
+def march_block_shapes(cases: list) -> set:
+    """The (rays, block rows, block columns, gated) that the blocked march
+    cases checked: the shapes ``k2_shapes`` records."""
+    return {(c["rays"], c["block"][2], c["block"][3], c["gated"]) for c in cases}
+
+
+@contextlib.contextmanager
+def k2_shapes():
+    """Records the (rays, block rows, block columns, gated) of every K2 call
+    made inside."""
+    from elevation_mapping_cupy_torch.ops import cuda_march as cm, raycast
+
+    shapes, march = set(), cm.exact_march
+
+    def recording(pack, world, valid, t, cfg, gate=None, block=None):
+        h, w = (cfg.cell_n, cfg.cell_n) if block is None else (block.h, block.w)
+        shapes.add((int(world.shape[0]), h, w, gate is not None))
+        return march(pack, world, valid, t, cfg, gate, block)
+
+    raycast.cuda_march.exact_march = recording
+    try:
+        yield shapes
+    finally:
+        raycast.cuda_march.exact_march = march
+
+
+def spatial_worker(port: int, rank: int, size: int, folder: str, backend: str = "gloo") -> None:
+    """One process of a spatial world on the card (``--spatial-worker``): a
+    group of ``size`` processes, every spatial config sharded over its
+    mesh, SPATIAL_STEPS updates (the first a warm-up), the launches and
+    shapes of the timed ones, the gathered map and a sharded move_to.
+    Results go to ``folder``. Under gloo every process computes on the
+    current card (the halos go through host memory); under NCCL each takes
+    card ``rank`` modulo the cards it sees."""
+    from elevation_mapping_cupy_torch import kernels
+    from elevation_mapping_cupy_torch.nn.traversability import DEFAULT_WEIGHT_FILE, load_weights_npz
+    from elevation_mapping_cupy_torch.parallel import distributed, make_mesh, spatial
+    from elevation_mapping_cupy_torch.state import init_state
+
+    import torch.distributed as tdist
+
+    if not distributed.initialize(f"localhost:{port}", size, rank, device="cpu" if backend == "gloo" else "cuda"):
+        raise RuntimeError("no process group")
+    shape, names, col_axis = SPATIAL_WORLDS[size]
+    mesh = make_mesh(shape, names)
+    regs = kernels.registered_kernels()
+    w = load_weights_npz(DEFAULT_WEIGHT_FILE).to("cuda")
+    report = {}
+    for name, (cfg, n) in spatial_configs().items():
+        state = spatial.shard_state_spatial(init_state(cfg, "cuda"), mesh, "x", col_axis)
+        step = spatial.spatial_update_pointcloud(mesh, cfg, "x", (), col_axis)
+        mask = torch.ones(n, dtype=torch.bool, device="cuda")
+        times = []
+        with k1_shapes() as k1, k2_shapes() as k2:
+            for k, (pts, R, t) in enumerate(spatial_clouds(name, n)):
+                if k == 1:
+                    for kern in regs.values():
+                        kern.launches = 0
+                    k1.clear()
+                    k2.clear()
+                args = (torch.from_numpy(pts).cuda(), mask, torch.from_numpy(R).cuda(), torch.from_numpy(t).cuda())
+                torch.cuda.synchronize()
+                tdist.barrier()
+                t0 = time.perf_counter()
+                state = step(state, *args, 0.0, 0.0, w)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        launches = {kname: kern.launches for kname, kern in regs.items()}
+        whole = spatial.gather_spatial(state, mesh, "x", col_axis)
+        t0 = time.perf_counter()
+        moved = spatial.spatial_move_to(state, torch.tensor(SPATIAL_MOVE[name], device="cuda"),
+                                        torch.eye(3, device="cuda"), cfg, mesh, "x", col_axis)
+        torch.cuda.synchronize()
+        move_s = time.perf_counter() - t0
+        moved = spatial.gather_spatial(moved, mesh, "x", col_axis)
+        report[name] = {"step_ms": [x * 1e3 for x in times[1:]], "warmup_ms": times[0] * 1e3, "move_ms": move_s * 1e3,
+                        "launches": launches, "k1_shapes": sorted(k1), "k2_shapes": sorted(k2),
+                        "block": list(state.layers.shape[-2:])}
+        if rank == 0:
+            np.savez(os.path.join(folder, f"{name}.npz"), layers=whole.layers.cpu().numpy(),
+                     normal=whole.normal.cpu().numpy(), moved=moved.layers.cpu().numpy())
+    with open(os.path.join(folder, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    distributed.shutdown()
+
+
+def run_spatial_world(size: int, backend: str = "gloo") -> tuple:
+    """Spawn a spatial world of ``size`` processes (``backend`` "gloo": all
+    on one card; "nccl": one card each) and wait for it; a rank that fails
+    or outlasts SPATIAL_TIMEOUT_S fails the phase. Returns (per-rank
+    reports, rank 0's gathered maps by config, seconds)."""
+    import socket
+
+    folder = tempfile.mkdtemp(prefix=f"spatial{size}_")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--spatial-worker", str(port), str(r),
+                               str(size), folder, "--spatial-backend", backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(size)]
+    try:
+        outs = [p.communicate(timeout=SPATIAL_TIMEOUT_S)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"spatial world of {size}: rank {r} exited {p.returncode}:\n{text[-6000:]}")
+    reports = []
+    for r in range(size):
+        with open(os.path.join(folder, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    maps = {}
+    for name in spatial_configs():
+        with np.load(os.path.join(folder, f"{name}.npz")) as z:
+            maps[name] = {k: z[k] for k in z.files}
+    return reports, maps, time.perf_counter() - t0
+
+
+def spatial_reference(name: str, cfg, n: int, weights, kernel_regs=None, mesh=None) -> tuple:
+    """The unsharded card update of a spatial config's SPATIAL_STEPS clouds
+    and its ``move_to``, as NumPy layers, normals and moved layers. With a
+    ``mesh`` of one process, the spatial step runs beside it on the same
+    inputs and is held to it (1e-5 on 99.9 % of cells: K1's atomics add in
+    any order, so two runs of one update differ in ulps on the card), with
+    both paths' launches counted. Returns (reference, no-group numbers)."""
+    from elevation_mapping_cupy_torch import core
+    from elevation_mapping_cupy_torch.parallel import spatial
+    from elevation_mapping_cupy_torch.state import init_state
+
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    ref = local = init_state(cfg, "cuda")
+    step = spatial.spatial_update_pointcloud(mesh, cfg, "x") if mesh is not None else None
+    times = []
+    for kern in (kernel_regs or {}).values():
+        kern.launches = 0
+    for pts, R, t in spatial_clouds(name, n):
+        args = (torch.from_numpy(pts).cuda(), mask, torch.from_numpy(R).cuda(), torch.from_numpy(t).cuda())
+        ref = core.update_pointcloud(ref, *args, 0.0, 0.0, weights, cfg)
+        if step is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            local = step(local, *args, 0.0, 0.0, weights)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    moved = core.move_to(ref, torch.tensor(SPATIAL_MOVE[name], device="cuda"), torch.eye(3, device="cuda"), cfg)
+    want = {"layers": ref.layers.cpu().numpy(), "normal": ref.normal.cpu().numpy(), "moved": moved.layers.cpu().numpy()}
+    if step is None:
+        return want, None
+    launches = {kname: kern.launches for kname, kern in kernel_regs.items()}
+    check_launches(f"spatial {name} without a group", launches, 2 * SPATIAL_STEPS, SPATIAL_LAUNCHES[name])
+    no_group = _share_within(f"spatial {name} without a group", {"layers": local.layers.cpu().numpy()},
+                             {"layers": want["layers"]}, SPATIAL_TOL, CMP_MIN_SHARE)
+    return want, {"step_ms": [x * 1e3 for x in times[1:]], "step_ms_median": float(np.median(times[1:]) * 1e3),
+                  "compare": no_group}
+
+
+def check_spatial_world(size: int, reports: list, maps: dict, refs: dict, checked: set, march_checked: set) -> dict:
+    """A spatial world's launches and shapes per process, and its gathered
+    maps against the unsharded card update; returns its numbers by config."""
+    out = {}
+    for name in spatial_configs():
+        per_rank = [r[name] for r in reports]
+        for rank, rep_ in enumerate(per_rank):
+            tag = f"spatial {name} world {size} rank {rank}"
+            check_launches(tag, rep_["launches"], SPATIAL_STEPS - 1, SPATIAL_LAUNCHES[name])
+            check_shapes(tag, {tuple(x) for x in rep_["k1_shapes"]}, checked)
+            k2 = {tuple(x) for x in rep_["k2_shapes"]}
+            if not k2 <= march_checked or (SPATIAL_LAUNCHES[name]["exact_march"] and not k2):
+                raise AssertionError(f"{tag}: K2 shapes {sorted(k2 - march_checked)} not checked by the march phase")
+        stats = _share_within(f"spatial {name} world {size}", maps[name], refs[name], SPATIAL_TOL, CMP_MIN_SHARE)
+        step_ms = [x for r in per_rank for x in r["step_ms"]]
+        out[name] = {
+            "mesh": SPATIAL_WORLDS[size][0], "blocks": [r["block"] for r in per_rank],
+            "step_ms_median": float(np.median(step_ms)), "step_ms_p90": float(np.percentile(step_ms, 90)),
+            "step_ms_by_rank": [r["step_ms"] for r in per_rank], "warmup_ms": [r["warmup_ms"] for r in per_rank],
+            "move_ms": [r["move_ms"] for r in per_rank], "launches_by_rank": [r["launches"] for r in per_rank],
+            "compare": stats,
+        }
+    return out
+
+
+def phase_spatial(kernel_regs, checked: set, march_checked: set, smi: str) -> dict:
+    """One map sharded over processes that share the card: each spatial
+    config without a group (the spatial step is ``core.update_pointcloud``),
+    then in a gloo world of 2 processes (rows) and of 4 (2x2 tiles). Every
+    world's gathered map, after SPATIAL_STEPS updates, and its sharded
+    ``move_to`` are held to the unsharded card update within SPATIAL_TOL;
+    each process launches K1 and K2 as the config's path must, at shapes
+    the kernels and march phases checked."""
+    from elevation_mapping_cupy_torch.nn.traversability import DEFAULT_WEIGHT_FILE, load_weights_npz
+    from elevation_mapping_cupy_torch.parallel import make_mesh, spatial
+
+    w = load_weights_npz(DEFAULT_WEIGHT_FILE).to("cuda")
+    mesh = make_mesh((1,), ("x",), devices="cuda")
+    res = {"card": smi, "transport": "gloo through host memory, all processes on cuda:0", "configs": {}}
+    refs = {}
+    for name, (cfg, n) in spatial_configs().items():
+        refs[name], no_group = spatial_reference(name, cfg, n, w, kernel_regs, mesh)
+        res["configs"][name] = {"cell_n": cfg.cell_n, "points": n, "ghost_width": spatial.ghost_width(cfg),
+                                "no_group": no_group}
+    for size in SPATIAL_WORLDS:
+        reports, maps, seconds = run_spatial_world(size)
+        for name, numbers in check_spatial_world(size, reports, maps, refs, checked, march_checked).items():
+            res["configs"][name][f"world{size}"] = dict(numbers, world_s=seconds)
+            log(f"spatial {name} world {size} ({smi}; gloo on one card): " + json.dumps(numbers))
+    res["launches"] = {f"{name}_world{size}": res["configs"][name][f"world{size}"]["launches_by_rank"][0]
+                       for name in spatial_configs() for size in SPATIAL_WORLDS}
+    log("spatial: " + json.dumps({k: v for k, v in res.items() if k != "configs"}))
+    return res
 
 
 def phase_exact(cfg, kernel_regs):
@@ -2496,7 +2891,14 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", metavar="PATH", help="also write every measured number of the run to PATH")
+    parser.add_argument("--spatial-worker", nargs=4, metavar=("PORT", "RANK", "SIZE", "DIR"),
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--spatial-backend", choices=("gloo", "nccl"), default="gloo", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.spatial_worker:
+        port, rank, size, folder = args.spatial_worker
+        spatial_worker(int(port), int(rank), int(size), folder, args.spatial_backend)
+        return 0
     t0 = time.perf_counter()
 
     def timed(phase, fn, *fn_args):
@@ -2510,7 +2912,7 @@ def main(argv=None) -> int:
     cfg = deployed_config()
     cases = timed("kernels", phase_kernels, cfg)
     main_res, launches, mapped_state = timed("main", phase_main, cfg, regs)
-    march_cases, fresh_cases = timed("march", phase_march, cfg, mapped_state)
+    march_cases, fresh_cases, block_cases = timed("march", phase_march, cfg, mapped_state)
     exact_res, exact_launches = timed("exact", phase_exact, cfg, regs)
     timed("replay", phase_replay, cfg, regs)
     sem_map, mem_res, allf_res = timed("semantic", phase_semantic, cfg, regs)
@@ -2522,6 +2924,7 @@ def main(argv=None) -> int:
     batched_res = timed("batched", phase_batched, regs, checked)
     service_res = timed("service", phase_service, regs, checked)
     dino_res = timed("dino", phase_dino)
+    spatial_res = timed("spatial", phase_spatial, regs, checked, march_block_shapes(block_cases), smi)
     log(f"total: {time.perf_counter() - t0:.1f} s")
     path_launches = {
         "polar": launches, "exact": exact_launches, "semantic_mem": mem_res["launches"],
@@ -2533,6 +2936,7 @@ def main(argv=None) -> int:
         **{f"batched_B{b}": batched_res["per_batch"][str(b)]["launches"] for b in BATCH_SIZES},
         "service": service_res["launches"], "service_image": service_res["image_launches"],
         "sensor_semantic": service_res["sensor"]["launches"],
+        **{f"spatial_{k}": v for k, v in spatial_res["launches"].items()},
     }
     line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS, path_launches)
     if args.json:
@@ -2542,9 +2946,10 @@ def main(argv=None) -> int:
                 "semantic_mem": mem_res, "semantic_all_fusions": allf_res, "image": image_res,
                 "plugins": plugin_res, "planeseg": planeseg_res, "batched": batched_res,
                 "profile": {"stages": profile_table, "launches": profile_launches, "cpu_compare": profile_cmp},
-                "service": service_res, "dino": dino_res,
+                "service": service_res, "dino": dino_res, "spatial": spatial_res,
                 "scatter_cases": list(cases.values()),
                 "march_cases": list(march_cases.values()) + list(fresh_cases.values()),
+                "march_block_cases": block_cases,
             }, f, indent=1)
     print(json.dumps(line))
     print(smi)

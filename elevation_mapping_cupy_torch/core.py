@@ -16,6 +16,11 @@ take either. Every stage of a batched update runs once for all maps, K1
 once per scatter stage for the whole batch (the exact march is one K2 launch
 per map), and nothing is read back to the host (``move_to`` computes each
 map's whole-cell shift on the device).
+
+The update also runs on one process's block of a spatially sharded map
+(``parallel/spatial.py``): given a ``shard``, the state holds the block
+with its ghost zone, every stage works on those cells, and the few sums
+over the whole map go through the shard's collectives.
 """
 
 from __future__ import annotations
@@ -151,22 +156,38 @@ def update_batch_aux(
     weights: TravFilter,        # shared by every map
     cfg: MapConfig,
     channels: Tuple[str, ...] = (),
+    shard=None,
 ) -> Tuple[MapState, Dict[str, torch.Tensor]]:
     """The update of B maps in one pass: every stage over the whole batch,
     K1 once per scatter stage. Returns the new batched state and the
     cleanup's aux (``gate_survivor_frac``, one per map). The semantic
-    fusions (``channels``) run map by map."""
+    fusions (``channels``) run map by map.
+
+    With ``shard`` (``parallel.spatial.SpatialShard``) the state's map
+    tensors are the cells of ``shard.block``: this process's block of a
+    sharded map with its ghost zone. Every stage runs on those cells as on
+    the whole map; the drift compensation's error sums (over the points of
+    the block this process owns), the gated march's segment counts and
+    class_max's class ids are joined over the shard's processes. The
+    result's ghost cells hold what the stencils could reach from the block:
+    the caller keeps the owned block."""
     dev, dt = state.layers.device, state.layers.dtype
     position_noise = torch.as_tensor(position_noise, dtype=dt, device=dev)
     orientation_noise = torch.as_tensor(orientation_noise, dtype=dt, device=dev)
+    block = None if shard is None else shard.block
 
     t_c = t - state.center            # shift_translation_to_map_center
-    assoc = associate_points(points[..., :3], pad_mask, R, t_c, cfg)
+    assoc = associate_points(points[..., :3], pad_mask, R, t_c, cfg, block)
 
     layers = state.layers
     # one shared row-gather of the point cells feeds both stages
     cell_rows = pc.gather_cell_rows(layers, assoc.flat_idx)
-    counts = pc.error_counting(layers, assoc, cfg, cell_rows)
+    if shard is None:
+        counts = pc.error_counting(layers, assoc, cfg, cell_rows)
+    else:
+        counts = pc.error_counting(layers, assoc, cfg, cell_rows, owned=shard.owns(assoc.flat_idx))
+        sums = shard.sum(torch.stack([counts.error_sum.double(), counts.error_cnt.double()]))
+        counts = counts._replace(error_sum=sums[0].to(dt), error_cnt=sums[1].to(counts.error_cnt.dtype))
     layers, mean_error, additive, h_delta = pc.apply_drift_compensation(
         layers,
         counts,
@@ -179,7 +200,8 @@ def update_batch_aux(
     # fusion decisions read the drift-compensated snapshot (R1)
     layers, newmap = pc.point_fusion(layers, assoc, counts.point_cnt, cfg, cell_rows, h_delta)
     layers, ray_aux = rc.visibility_cleanup(
-        layers, state.normal, assoc, counts.inlier_cnt, t_c, cfg, with_aux=True
+        layers, state.normal, assoc, counts.inlier_cnt, t_c, cfg, with_aux=True,
+        block=block, reduce=None if shard is None else shard.sum,
     )
     layers = pc.average_map(layers, newmap, cfg)
 
@@ -195,16 +217,21 @@ def update_batch_aux(
                 channels,
                 newmap[b, 2],
                 cfg,
+                None if shard is None else shard.gather,
             )
             for b in range(layers.shape[0])
         ]
         semantic, sem_new, id_max = (stack_tensors(xs) for xs in zip(*per_map))
 
     if cfg.enable_overlap_clearance:
-        layers = pc.clear_overlap(layers, t_c, cfg)
-    trav_input, _ = stencil.dilation_fill(layers[:, 5], layers[:, 2] + layers[:, 6], cfg.dilation_size)
+        layers = pc.clear_overlap(layers, t_c, cfg, block)
+    height, height_mask = layers[:, 5], layers[:, 2] + layers[:, 6]
+    edges = None
+    if shard is not None:
+        edges = shard.edges(torch.stack([height, height_mask], dim=-3), cfg.dilation_size)
+    trav_input, _ = stencil.dilation_fill(height, height_mask, cfg.dilation_size, block, edges)
     layers = _apply_traversability(layers, trav_input, weights)
-    normal = stencil.surface_normals(trav_input, layers[:, 2], cfg.resolution)
+    normal = stencil.surface_normals(trav_input, layers[:, 2], cfg.resolution, block)
     out = state._replace(
         layers=layers,
         normal=normal,
@@ -350,12 +377,23 @@ def _roll(x: torch.Tensor, sh: _Shift) -> torch.Tensor:
     return torch.gather(torch.gather(x, -2, rows), -1, cols)
 
 
-def _roll_pad(x: torch.Tensor, sh: _Shift, value) -> torch.Tensor:
-    """Roll a stack and set the revealed cells to ``value`` (cp.roll +
-    pad_value)."""
-    if x.numel() == 0:
-        return x
-    return torch.where(sh.revealed[..., None, :, :], value, _roll(x, sh))
+def shift_cells(state: MapState, roll, revealed: torch.Tensor, cfg: MapConfig) -> MapState:
+    """Every map-shaped field moved by ``roll`` (a function of an (..., L,
+    H, W) stack) with the cells ``revealed`` (..., H, W) reset: variance to
+    initial_variance, everything else 0 (cp.roll + pad_value)."""
+    rolled = roll(state.layers)
+    layers = torch.where(revealed[..., None, :, :], 0.0, rolled)
+    layers[..., 1, :, :] = torch.where(revealed, cfg.initial_variance, rolled[..., 1, :, :])
+
+    def pad(x, value):
+        return x if x.numel() == 0 else torch.where(revealed[..., None, :, :], value, roll(x))
+
+    return state._replace(
+        layers=layers,
+        semantic=pad(state.semantic, 0.0),
+        sem_new=pad(state.sem_new, 0.0),
+        id_max=pad(state.id_max, 0),
+    )
 
 
 def shift_map_xy(state: MapState, s0, s1, cfg: MapConfig) -> MapState:
@@ -364,15 +402,7 @@ def shift_map_xy(state: MapState, s0, s1, cfg: MapConfig) -> MapState:
     everything else 0). The shifts are ints or tensors, one value per map of
     a batched state."""
     sh = _shift(s0, s1, state.layers.shape[-1], state.layers.device)
-    rolled = _roll(state.layers, sh)
-    layers = torch.where(sh.revealed[..., None, :, :], 0.0, rolled)
-    layers[..., 1, :, :] = torch.where(sh.revealed, cfg.initial_variance, rolled[..., 1, :, :])
-    return state._replace(
-        layers=layers,
-        semantic=_roll_pad(state.semantic, sh, 0.0),
-        sem_new=_roll_pad(state.sem_new, sh, 0.0),
-        id_max=_roll_pad(state.id_max, sh, 0),
-    )
+    return shift_cells(state, lambda x: _roll(x, sh), sh.revealed, cfg)
 
 
 def shift_map_z(state: MapState, delta_z: torch.Tensor) -> MapState:
@@ -390,17 +420,19 @@ def _pixel_shift(delta_xy: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
 
 
 @torch.no_grad()
-def move_to(state: MapState, position: torch.Tensor, R: torch.Tensor, cfg: MapConfig) -> MapState:
+def move_to(state: MapState, position: torch.Tensor, R: torch.Tensor, cfg: MapConfig, shift_xy=None) -> MapState:
     """Shift the map to an absolute position (elevation_mapping.py:154-170).
     A batched state takes (B, 3) positions and (B, 3, 3) rotations; each map
-    moves by its own whole-cell shift, computed on the device."""
+    moves by its own whole-cell shift, computed on the device. ``shift_xy``
+    replaces :func:`shift_map_xy` (a sharded map's moves cells between
+    processes)."""
     delta = position - state.center
     delta_pixel = _pixel_shift(delta[..., :2], cfg)
     center = state.center.clone()
     center[..., :2] += delta_pixel * cfg.resolution
     center[..., 2] += delta[..., 2]
     state = state._replace(center=center, rotation=R.to(state.rotation.dtype))
-    state = shift_map_xy(state, -delta_pixel[..., 0], -delta_pixel[..., 1], cfg)
+    state = (shift_map_xy if shift_xy is None else shift_xy)(state, -delta_pixel[..., 0], -delta_pixel[..., 1], cfg)
     return shift_map_z(state, -delta[..., 2])
 
 

@@ -77,6 +77,17 @@
 // The entry point initialises the outputs itself (one small kernel on the
 // stream) before the march.
 //
+// Block bounds. The pack and the outputs may cover a block of the map, rows
+// [r0, r0 + bh) and columns [c0, c0 + bw) of the n x n cells (one process's
+// cells of a spatially sharded map). Every sample is computed as on the
+// whole map, in the same global cell, and the "fresh" test compares global
+// cells; a sample writes only when its cell lies in the block, at the
+// block's own index. The gate table may cover a window of the map's gate
+// blocks too: a segment whose first sample's gate block lies outside the
+// window holds no writer of this block and is skipped, as the host builds
+// the window to cover every gate block within one of the block's. With the
+// whole map as block and window the launch is the unblocked one.
+//
 // Built by elevation_mapping_cupy_torch/kernels.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libexact_march.so exact_march.cu
@@ -91,27 +102,30 @@ namespace {
 constexpr int kThreads = 256;
 
 struct Grid {
-  int n;          // cells per side
+  int n;          // cells per side of the map
   float res;      // cell size (m)
   float half_n;   // 0.5 * n
   float step;     // ray step (m)
   int n_steps;    // steps of the longest ray
+  int r0, c0;     // the block's first row and column
+  int bh, bw;     // the block's rows and columns
 };
 
 struct GateArgs {
-  const float* table;  // (nb*nb,) block thresholds, or null: no gate
+  const float* table;  // (rows*cols,) block thresholds, or null: no gate
   int seg;             // steps per segment
   int seg_shift;       // log2(seg) when seg is a power of two, else -1
   int block;           // cells per block side
   int block_shift;     // log2(block) when block is a power of two, else -1
-  int nb;              // blocks per side
+  int r0, c0;          // the table's first gate block row and column
+  int rows, cols;      // the table's gate block rows and columns
   float eps;
 };
 
 struct Outputs {
-  float2* dechits;              // (n*n, 2): summed decrement, hit count
-  float* ubmin;                 // (n*n,): lowest upper-bound candidate
-  const float* reach;           // (n*n,): see init_outputs_kernel
+  float2* dechits;              // (bh*bw, 2): summed decrement, hit count
+  float* ubmin;                 // (bh*bw,): lowest upper-bound candidate
+  const float* reach;           // (bh*bw,): see init_outputs_kernel
   unsigned long long* counts;   // (2,): surviving, live segments; or null
 };
 
@@ -191,10 +205,11 @@ __device__ __forceinline__ int make_ray(float px, float py, float pz,
   return min(steps_below(ray_length, false, g), steps_below(end, true, g));
 }
 
-// x and y of sample m and its cell, clamped to the map
+// x and y of sample m, its cell, clamped to the map, and the cell's index
+// in the block (-1 outside it)
 struct Sample {
   float s, sx, sy;
-  int ix, iy, cell;
+  int ix, iy, cell, local;
 };
 
 __device__ __forceinline__ Sample sample_cell(int m, const Ray& r, float tx,
@@ -206,11 +221,13 @@ __device__ __forceinline__ Sample sample_cell(int m, const Ray& r, float tx,
   q.ix = axis_cell(q.sx, g);
   q.iy = axis_cell(q.sy, g);
   q.cell = g.n * q.ix + q.iy;
+  const int lr = q.ix - g.r0, lc = q.iy - g.c0;
+  q.local = (lr >= 0 && lr < g.bh && lc >= 0 && lc < g.bw) ? lr * g.bw + lc : -1;
   return q;
 }
 
-// The rules of a sample that lies inside the map in a cell the previous
-// step was not in.
+// The rules of a sample that lies inside the map and the block in a cell
+// the previous step was not in.
 __device__ __forceinline__ void fresh_sample(const Sample& q, const Ray& r,
                                              float tz,
                                              const float4* __restrict__ pack,
@@ -219,14 +236,14 @@ __device__ __forceinline__ void fresh_sample(const Sample& q, const Ray& r,
   const float nz = __fmaf_rn(r.dz, q.s, tz);
   // no sample at or above the cell's reach writes: most samples end here,
   // on 4 bytes that stay in L1, and never load the 32-byte row
-  if (!(nz < __ldg(out.reach + q.cell))) return;
+  if (!(nz < __ldg(out.reach + q.local))) return;
   // the cell row (height, penetration slack, upper-bound threshold, code;
   // normal x, y, z, padding) and the stored upper bound, all asked for at
   // once: the few samples that come this far would else wait for three
   // loads one after the other
-  const float4 a = __ldg(pack + 2 * q.cell);
-  const float4 b = __ldg(pack + 2 * q.cell + 1);
-  const float ub_stored = __ldcg(out.ubmin + q.cell);
+  const float4 a = __ldg(pack + 2 * q.local);
+  const float4 b = __ldg(pack + 2 * q.local + 1);
+  const float ub_stored = __ldcg(out.ubmin + q.local);
   const float ex = __fsub_rn(r.px, q.sx);
   const float ey = __fsub_rn(r.py, q.sy);
   const float ez = __fsub_rn(r.pz, nz);
@@ -243,18 +260,20 @@ __device__ __forceinline__ void fresh_sample(const Sample& q, const Ray& r,
       const float prod =
           __fmaf_rn(r.dz, b.z, __fmaf_rn(r.dx, b.x, __fmul_rn(r.dy, b.y)));
       if (fabsf(prod) >= cos_thresh) {
-        atomicAdd(out.dechits + q.cell, make_float2(r.dec_amount, 1.0f));
+        atomicAdd(out.dechits + q.local, make_float2(r.dec_amount, 1.0f));
         write_ub = ub_cond;
       }
     }
   }
   // the stored min only falls: a stale read can cost a redundant atomic,
   // never lose a write
-  if (write_ub && nz < ub_stored) atomic_min_f32(out.ubmin + q.cell, nz);
+  if (write_ub && nz < ub_stored) atomic_min_f32(out.ubmin + q.local, nz);
 }
 
-__device__ __forceinline__ bool inside(const Sample& q, const Grid& g) {
-  return q.ix > 0 && q.ix < g.n - 1 && q.iy > 0 && q.iy < g.n - 1;
+// inside the map's border and in the block
+__device__ __forceinline__ bool writable(const Sample& q, const Grid& g) {
+  return q.local >= 0 && q.ix > 0 && q.ix < g.n - 1 && q.iy > 0 &&
+         q.iy < g.n - 1;
 }
 
 // The groups of a warp run every loop the same number of times (the most
@@ -297,7 +316,7 @@ __device__ __forceinline__ void march_flat(const Ray& r, int k, int lane,
     int prev = __shfl_up_sync(kFull, q.cell, 1, G);
     if (lane == 0) prev = carry;
     carry = __shfl_sync(kFull, q.cell, G - 1, G);
-    if (m < k && inside(q, g) && q.cell != prev) {
+    if (m < k && writable(q, g) && q.cell != prev) {
       fresh_sample(q, r, tz, pack, cos_thresh, out);
     }
   }
@@ -331,9 +350,12 @@ __device__ __forceinline__ uint2 march_gated(const Ray& r, int k, int lane,
       const float y0 = __fmaf_rn(r.dy, s_lo, ty);
       const float nz_min =
           fminf(__fmaf_rn(r.dz, s_lo, tz), __fmaf_rn(r.dz, s_hi, tz));
-      const int bx = div_pow2(axis_cell(x0, g), ga.block, ga.block_shift);
-      const int by = div_pow2(axis_cell(y0, g), ga.block, ga.block_shift);
-      survives = nz_min < __fadd_rn(__ldg(ga.table + bx * ga.nb + by), ga.eps);
+      const int bx =
+          div_pow2(axis_cell(x0, g), ga.block, ga.block_shift) - ga.r0;
+      const int by =
+          div_pow2(axis_cell(y0, g), ga.block, ga.block_shift) - ga.c0;
+      survives = bx >= 0 && bx < ga.rows && by >= 0 && by < ga.cols &&
+                 nz_min < __fadd_rn(__ldg(ga.table + bx * ga.cols + by), ga.eps);
       if (survives && m_lo > 0) before = sample_cell(m_lo - 1, r, tx, ty, g).cell;
     }
     const unsigned smask = group_ballot<G>(survives, gshift);
@@ -361,7 +383,7 @@ __device__ __forceinline__ uint2 march_gated(const Ray& r, int k, int lane,
       if (lane == 0) prev = carry;  // a segment that straddles two passes
       if (off == 0) prev = seg_before;
       carry = __shfl_sync(kFull, q.cell, G - 1, G);
-      if (sl >= 0 && m < k && inside(q, g) && q.cell != prev) {
+      if (sl >= 0 && m < k && writable(q, g) && q.cell != prev) {
         fresh_sample(q, r, tz, pack, cos_thresh, out);
       }
       const int done = div_pow2(f0 + G, ga.seg, ga.seg_shift);
@@ -373,8 +395,8 @@ __device__ __forceinline__ uint2 march_gated(const Ray& r, int k, int lane,
 
 // dechits <- 0, ubmin <- +inf, counts <- 0, and each cell's reach, in one
 // pass over the outputs' one buffer: floats [0, 4) are the two counts,
-// [4, 4 + 2 n^2) the decrement and hit count, then n^2 of upper bound and
-// n^2 of reach.
+// [4, 4 + 2 n2) the decrement and hit count, then n2 of upper bound and
+// n2 of reach, for the n2 = bh * bw cells of the block.
 // A cell's reach is a height that every sample that writes to the cell lies
 // below. An invalid cell (code 1) is written where nz < its upper-bound
 // threshold: that is its reach. An eligible cell (code 2) is written only
@@ -523,28 +545,37 @@ cudaError_t launch_march(const float4* pack, const float* points,
 
 }  // namespace
 
-// pack (n*n, 8) float32 cell rows; points (n_rays, 3) float32 ray end
-// points and valid (n_rays,) bool, both in the map-center frame; t (3,)
-// float32 sensor position; gate (nb*nb,) float32 or null; outputs
-// (4 + 4*n*n,) float32, uninitialised and 8-byte aligned: initialised here
-// and then holding the two int64 counts (surviving, live segments), the
-// (n*n, 2) decrement and hit count, the (n*n,) upper bound (+inf where
-// unwritten) and (n*n,) of scratch. `lanes` (16 or 32) is the number of
-// lanes that march one ray. Works on `stream` and does not synchronise.
+// pack (bh*bw, 8) float32 rows of the block's cells (rows [r0, r0 + bh),
+// columns [c0, c0 + bw) of the n x n map); points (n_rays, 3) float32 ray
+// end points and valid (n_rays,) bool, both in the map-center frame; t (3,)
+// float32 sensor position; gate (gate_rows*gate_cols,) float32, the window
+// of gate blocks from (gate_r0, gate_c0), or null; outputs
+// (4 + 4*bh*bw,) float32, uninitialised and 8-byte aligned: initialised
+// here and then holding the two int64 counts (surviving, live segments),
+// the (bh*bw, 2) decrement and hit count, the (bh*bw,) upper bound (+inf
+// where unwritten) and (bh*bw,) of scratch. `lanes` (16 or 32) is the
+// number of lanes that march one ray. Works on `stream` and does not
+// synchronise.
 extern "C" int exact_march(const void* pack, const void* points,
                            const void* valid, const void* t, const void* gate,
-                           void* outputs, int64_t n_rays, int32_t n, float res,
-                           float step, int32_t n_steps, float max_ray_length,
-                           float cleanup_step, float cos_thresh, int32_t seg,
-                           int32_t block, int32_t nb, float gate_eps,
-                           int32_t lanes, void* stream) {
+                           void* outputs, int64_t n_rays, int32_t n,
+                           int32_t r0, int32_t c0, int32_t bh, int32_t bw,
+                           float res, float step, int32_t n_steps,
+                           float max_ray_length, float cleanup_step,
+                           float cos_thresh, int32_t seg, int32_t block,
+                           int32_t gate_r0, int32_t gate_c0, int32_t gate_rows,
+                           int32_t gate_cols, float gate_eps, int32_t lanes,
+                           void* stream) {
   if (n_rays == 0) return static_cast<int>(cudaSuccess);
-  if (n <= 2 || n_steps < 0 || (gate != nullptr && (seg <= 0 || block <= 0)) ||
+  if (n <= 2 || n_steps < 0 || r0 < 0 || c0 < 0 || bh <= 0 || bw <= 0 ||
+      r0 + bh > n || c0 + bw > n ||
+      (gate != nullptr && (seg <= 0 || block <= 0 || gate_rows <= 0 ||
+                           gate_cols <= 0)) ||
       (reinterpret_cast<uintptr_t>(outputs) & 7u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t n2 = static_cast<int64_t>(n) * n;
+  const int64_t n2 = static_cast<int64_t>(bh) * bw;
   float* buf = static_cast<float*>(outputs);
   const int64_t n_zero = 4 + 2 * n2, n_all = 4 + 4 * n2;
   const float4* p = static_cast<const float4*>(pack);
@@ -553,9 +584,11 @@ extern "C" int exact_march(const void* pack, const void* points,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const Grid g{n, res, 0.5f * static_cast<float>(n), step, n_steps};
+  const Grid g{n, res, 0.5f * static_cast<float>(n), step, n_steps,
+               r0, c0, bh, bw};
   const GateArgs ga{static_cast<const float*>(gate), seg, log2_exact(seg),
-                    block, log2_exact(block), nb, gate_eps};
+                    block, log2_exact(block), gate_r0, gate_c0, gate_rows,
+                    gate_cols, gate_eps};
   const Outputs out{
       reinterpret_cast<float2*>(buf + 4), buf + n_zero, buf + n_zero + n2,
       gate != nullptr ? reinterpret_cast<unsigned long long*>(buf) : nullptr};

@@ -12,10 +12,11 @@ package.
 
 Inputs, built by ``ops/raycast.py``:
 
-- ``pack`` (n*n, 8) float32 cell rows of the R1 snapshot: height,
+- ``pack`` (h*w, 8) float32 cell rows of the R1 snapshot: height,
   penetration slack ``min(var, 1) * 0.05``, upper-bound threshold (+inf
   without an upper bound), code (1 invalid, 2 eligible to be cleaned up,
-  0 neither), normal x, y, z, and a zero pad;
+  0 neither), normal x, y, z, and a zero pad; the cells are a ``block``
+  (``geometry.Block``) of the map, by default the whole map;
 - ``world`` (N, 3) ray end points and ``valid`` (N,) bool (a ray that is not
   valid is not marched), both in the map-center frame;
 - ``t`` (3,) sensor position in the map-center frame;
@@ -25,10 +26,14 @@ Each ray's direction, decrement and live-step count come from ``world`` and
 ``t`` (:func:`ray_table`); step m samples the ray at
 ``s_m = (m + 1) * ray_step``.
 
-Outputs (:class:`MarchResult`): per cell the summed decrement, the number
-of hits (an integer in float32), the lowest upper-bound candidate (+inf
-where none was written) and, with a gate, the surviving and live segment
-counts (int64).
+Outputs (:class:`MarchResult`): per cell of the block the summed
+decrement, the number of hits (an integer in float32), the lowest
+upper-bound candidate (+inf where none was written) and, with a gate, the
+surviving and live segment counts (int64).
+
+On a block every sample is computed as on the whole map, in the same
+global cell, and writes only when that cell lies in the block: the blocks'
+outputs put together are the whole map's.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import torch
 
 from ..config import MapConfig
 from ..kernels import CudaKernel
-from .geometry import cell_indices, fma32, is_inside, sqrt32, true_div
+from .geometry import Block, cell_indices, fma32, is_inside, sqrt32, true_div
 
 __all__ = [
     "KERNEL",
@@ -59,9 +64,9 @@ KERNEL = CudaKernel(
     "exact_march.cu",
     "exact_march",
     [ctypes.c_void_p] * 6
-    + [ctypes.c_int64, ctypes.c_int32, ctypes.c_float, ctypes.c_float, ctypes.c_int32,
-       ctypes.c_float, ctypes.c_float, ctypes.c_float,
-       ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_float, ctypes.c_int32, ctypes.c_void_p],
+    + [ctypes.c_int64] + [ctypes.c_int32] * 5
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_int32, ctypes.c_float, ctypes.c_float, ctypes.c_float]
+    + [ctypes.c_int32] * 6 + [ctypes.c_float, ctypes.c_int32, ctypes.c_void_p],
 )
 
 # lanes of a warp that march one ray together (16 or 32), without and with
@@ -79,22 +84,25 @@ _ROOT_01 = math.sqrt(float(torch.tensor(0.1, dtype=torch.float32)))
 
 
 class Gate(NamedTuple):
-    """Segment gate of the gated march: ``table`` (nb*nb,) float32 holds,
-    per block of ``block`` x ``block`` cells, the 3x3-dilated block max of
-    the cell write threshold; a segment of ``seg`` steps whose lowest sample
-    is not below ``table + eps`` at the block of its first sample holds no
-    writer and is skipped."""
+    """Segment gate of the gated march: ``table`` (rows, cols) float32
+    holds, per gate block of ``block`` x ``block`` cells, the 3x3-dilated
+    block max of the cell write threshold, for the gate blocks from
+    ``origin`` (row, column); a segment of ``seg`` steps whose lowest sample
+    is not below ``table + eps`` at the gate block of its first sample, or
+    whose first sample's gate block lies outside the table, holds no writer
+    and is skipped."""
 
     table: torch.Tensor
     seg: int
     block: int
     eps: float
+    origin: Tuple[int, int] = (0, 0)
 
 
 class MarchResult(NamedTuple):
-    dec: torch.Tensor                      # (n*n,) float32 summed decrement
-    hits: torch.Tensor                     # (n*n,) float32 hit count
-    ubmin: torch.Tensor                    # (n*n,) float32, +inf where unwritten
+    dec: torch.Tensor                      # (h*w,) float32 summed decrement
+    hits: torch.Tensor                     # (h*w,) float32 hit count
+    ubmin: torch.Tensor                    # (h*w,) float32, +inf where unwritten
     counts: Optional[torch.Tensor] = None  # (2,) int64 [surviving, live] segments
 
 
@@ -176,8 +184,18 @@ def ray_table(
     return rays, k
 
 
-def _check(pack, world, valid, t, cfg: MapConfig, gate: Optional[Gate]) -> None:
-    n2 = cfg.cell_n * cfg.cell_n
+def _block(cfg: MapConfig, block: Optional[Block]) -> Block:
+    n = cfg.cell_n
+    if block is None:
+        return Block.whole(n, n)
+    if (block.gh, block.gw) != (n, n) or min(block.r0, block.c0) < 0 or block.h <= 0 or block.w <= 0 \
+            or block.r0 + block.h > n or block.c0 + block.w > n:
+        raise ValueError(f"block {block} does not lie in the {n} x {n} map")
+    return block
+
+
+def _check(pack, world, valid, t, cfg: MapConfig, gate: Optional[Gate], block: Block) -> None:
+    n2 = block.h * block.w
     if pack.shape != (n2, PACK_WIDTH):
         raise ValueError(f"pack must be ({n2}, {PACK_WIDTH}); got {tuple(pack.shape)}")
     if world.dim() != 2 or world.shape[1] != 3 or valid.shape != (world.shape[0],):
@@ -189,10 +207,8 @@ def _check(pack, world, valid, t, cfg: MapConfig, gate: Optional[Gate]) -> None:
     tensors = [pack, world, valid, t] + ([gate.table] if gate is not None else [])
     if len({x.device for x in tensors}) != 1:
         raise ValueError("the march's tensors must lie on one device")
-    if gate is not None:
-        nb = -(-cfg.cell_n // gate.block)
-        if gate.table.shape != (nb * nb,):
-            raise ValueError(f"gate table must be ({nb * nb},); got {tuple(gate.table.shape)}")
+    if gate is not None and (gate.table.dim() != 2 or min(gate.origin) < 0):
+        raise ValueError(f"gate table must be 2-D from an origin >= 0; got {tuple(gate.table.shape)} at {gate.origin}")
 
 
 def _segment_survives(rays, m0: int, m1, t, gate: Gate, steps, cfg: MapConfig) -> torch.Tensor:
@@ -204,9 +220,12 @@ def _segment_survives(rays, m0: int, m1, t, gate: Gate, steps, cfg: MapConfig) -
     xy0 = torch.stack([_fma(rays[0], s_lo, t[0]), _fma(rays[1], s_lo, t[1])], dim=-1)
     nz_min = torch.minimum(_fma(rays[2], s_lo, t[2]), _fma(rays[2], s_hi, t[2]))
     ix, iy = cell_indices(xy0, torch.zeros(2, dtype=rays.dtype, device=rays.device), cfg)
-    nb = -(-cfg.cell_n // gate.block)
-    g = gate.table[((ix // gate.block) * nb + iy // gate.block).long()]
-    return nz_min < g + gate.eps
+    rows, cols = gate.table.shape
+    bx = ix // gate.block - gate.origin[0]
+    by = iy // gate.block - gate.origin[1]
+    held = (bx >= 0) & (bx < rows) & (by >= 0) & (by < cols)
+    g = gate.table.reshape(-1)[torch.where(held, bx * cols + by, 0).long()]
+    return held & (nz_min < g + gate.eps)
 
 
 def _tally(work: Optional[Dict[str, int]], **counts) -> None:
@@ -223,6 +242,7 @@ def exact_march_reference(
     cfg: MapConfig,
     gate: Optional[Gate] = None,
     work: Optional[Dict[str, int]] = None,
+    block: Optional[Block] = None,
 ) -> MarchResult:
     """Plain PyTorch version: the step loop of ``_exact_scan``
     (raycast.py:257-312) over the rays still live at each step, with the
@@ -237,13 +257,16 @@ def exact_march_reference(
     the map and in a cell the previous step was not in), tested (past the
     endpoint test, so the cell row is read), eligible (on a cell that can
     be cleaned up), penetrating, hits and upper-bound writes. A bound on the
-    kernel's time is counted from these."""
-    _check(pack, world, valid, t, cfg, gate)
+    kernel's time is counted from these; on a block, "fresh" counts only the
+    samples in the block."""
+    block = _block(cfg, block)
+    _check(pack, world, valid, t, cfg, gate, block)
     n = cfg.cell_n
     dev, dt = pack.device, pack.dtype
-    dec = torch.zeros(n * n, dtype=dt, device=dev)
-    hits = torch.zeros(n * n, dtype=dt, device=dev)
-    ubmin = torch.full((n * n,), math.inf, dtype=dt, device=dev)
+    n2 = block.h * block.w
+    dec = torch.zeros(n2, dtype=dt, device=dev)
+    hits = torch.zeros(n2, dtype=dt, device=dev)
+    ubmin = torch.full((n2,), math.inf, dtype=dt, device=dev)
     counts = torch.zeros(2, dtype=torch.int64, device=dev) if gate is not None else None
     n_rays = world.shape[0]
     _tally(work, rays=valid.sum() if n_rays else 0)
@@ -282,7 +305,8 @@ def exact_march_reference(
             _tally(work, segments=live)
         s = steps[m]
         nidx, ix, iy = cells(s, live)
-        fresh = is_inside(ix, iy, cfg)
+        local, held = block.localize(ix, iy)
+        fresh = is_inside(ix, iy, cfg) & held
         if m > 0:
             fresh &= nidx != cells(steps[m - 1], live)[0]
         if survive is not None:
@@ -296,7 +320,7 @@ def exact_march_reference(
         sel = torch.nonzero(active).squeeze(1)
         if sel.numel() == 0:
             continue
-        cell = nidx[sel].long()
+        cell = local[sel].long()
         nz = nz[sel]
         row = pack[cell]
         ub_cond = nz < row[:, 2]
@@ -320,46 +344,48 @@ def exact_march(
     t: torch.Tensor,
     cfg: MapConfig,
     gate: Optional[Gate] = None,
+    block: Optional[Block] = None,
 ) -> MarchResult:
     """The exact march: see :func:`exact_march_reference` for the contract.
     CUDA tensors go to the kernel; CPU tensors to the plain version. From
-    the kernel, ``dec`` and ``hits`` are the two columns of one (n*n, 2)
+    the kernel, ``dec`` and ``hits`` are the two columns of one (h*w, 2)
     buffer, views of stride 2; ``ubmin`` and ``counts`` are views of the same
     allocation. The plain version returns contiguous tensors."""
-    _check(pack, world, valid, t, cfg, gate)
+    block = _block(cfg, block)
+    _check(pack, world, valid, t, cfg, gate, block)
     if pack.device.type == "cpu":
-        return exact_march_reference(pack, world, valid, t, cfg, gate)
+        return exact_march_reference(pack, world, valid, t, cfg, gate, block=block)
     if pack.device.type != "cuda":
         raise ValueError(f"exact_march runs on cuda or cpu tensors, not {pack.device}")
     tensors = [pack, world, t] + ([gate.table] if gate is not None else [])
     if any(x.dtype != torch.float32 for x in tensors):
         raise TypeError("exact_march's kernel takes float32 pack, world, t and gate table")
-    n = cfg.cell_n
-    n2 = n * n
+    n2 = block.h * block.w
     dev = pack.device
     pack, world, valid, t = (x.contiguous() for x in (pack, world, valid, t))
-    gate_ptr, seg, block, nb, eps = None, 0, 0, 0, 0.0
+    gate_ptr, seg, gblock, gate_r0, gate_c0, rows, cols, eps = None, 0, 0, 0, 0, 0, 0, 0.0
     if gate is not None:
         table = gate.table.contiguous()
         gate_ptr = table.data_ptr()
-        seg, block, eps = gate.seg, gate.block, gate.eps
-        nb = -(-n // block)
+        seg, gblock, eps = gate.seg, gate.block, gate.eps
+        (gate_r0, gate_c0), (rows, cols) = gate.origin, table.shape
     if world.shape[0] == 0:  # nothing to march: no launch
         zeros = torch.zeros(2 * n2, dtype=torch.float32, device=dev)
         ubmin = torch.full((n2,), math.inf, dtype=torch.float32, device=dev)
         counts = torch.zeros(2, dtype=torch.int64, device=dev) if gate is not None else None
         return MarchResult(zeros[:n2], zeros[n2:], ubmin, counts)
     # one buffer for every output, initialised by the entry point on the
-    # stream: 4 floats that hold the two int64 counts, the (n*n, 2)
+    # stream: 4 floats that hold the two int64 counts, the (h*w, 2)
     # decrement and hit count (one float2 atomic adds both), the upper bound,
-    # and n*n of the kernel's scratch
+    # and h*w of the kernel's scratch
     buf = torch.empty(4 + 4 * n2, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         KERNEL.launch(
             pack.data_ptr(), world.data_ptr(), valid.data_ptr(), t.data_ptr(), gate_ptr, buf.data_ptr(),
-            world.shape[0], n, cfg.resolution, cfg.ray_step, cfg.n_ray_steps,
+            world.shape[0], cfg.cell_n, block.r0, block.c0, block.h, block.w,
+            cfg.resolution, cfg.ray_step, cfg.n_ray_steps,
             cfg.max_ray_length, cfg.cleanup_step, cfg.cleanup_cos_thresh,
-            seg, block, nb, eps, LANES_GATED if gate is not None else LANES_FLAT,
+            seg, gblock, gate_r0, gate_c0, rows, cols, eps, LANES_GATED if gate is not None else LANES_FLAT,
             torch.cuda.current_stream().cuda_stream,
         )
     dechits = buf[4 : 4 + 2 * n2].view(n2, 2)

@@ -10,12 +10,16 @@ border are "outside" (is_inside == False).
 
 Point tensors may carry leading batch axes, one map each: (..., N, 3)
 points with (..., 3, 3) rotations and (..., 3) translations.
+
+A :class:`Block` is a window of a map's cells (a spatially sharded map
+holds one per process, ``parallel/spatial.py``): with one, the association
+indexes the block's own cells and keeps only the points that land there.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,6 +29,7 @@ __all__ = [
     "true_div",
     "fma32",
     "sqrt32",
+    "Block",
     "cell_indices",
     "is_inside",
     "flat_cell_index",
@@ -84,6 +89,46 @@ def sqrt32(x: torch.Tensor) -> torch.Tensor:
         mid = (r.double() + other.double()) * 0.5
         r = torch.where(pos & wrong_side(mid * mid, xd), other, r)
     return r
+
+
+class Block(NamedTuple):
+    """Rows ``[r0, r0 + h)`` and columns ``[c0, c0 + w)`` of a ``(gh, gw)``
+    map whose flat cell index is ``gw * row + col``. Tensors of a block are
+    (..., h, w); a stage given one works on those cells with their global
+    positions (the map border, the cell centres, the flat neighbours)."""
+
+    r0: int
+    c0: int
+    h: int
+    w: int
+    gh: int
+    gw: int
+
+    @staticmethod
+    def whole(h: int, w: int) -> "Block":
+        return Block(0, 0, h, w, h, w)
+
+    def rows(self, device) -> torch.Tensor:
+        """(h, 1) global row of each row of the block."""
+        return torch.arange(self.r0, self.r0 + self.h, device=device)[:, None]
+
+    def cols(self, device) -> torch.Tensor:
+        """(1, w) global column of each column of the block."""
+        return torch.arange(self.c0, self.c0 + self.w, device=device)[None, :]
+
+    def localize(self, ix: torch.Tensor, iy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(flat index into the block, held): the block's own flat index
+        ``w * (ix - r0) + (iy - c0)`` of each global cell (ix, iy) it holds,
+        0 for the others."""
+        held = (ix >= self.r0) & (ix < self.r0 + self.h) & (iy >= self.c0) & (iy < self.c0 + self.w)
+        local = self.w * (ix - self.r0) + (iy - self.c0)
+        return torch.where(held, local, 0).to(torch.int32), held
+
+    def sub(self, other: "Block") -> Tuple[slice, slice]:
+        """Slices of this block's tensors that hold ``other``, a block within
+        it."""
+        r, c = other.r0 - self.r0, other.c0 - self.c0
+        return slice(r, r + other.h), slice(c, c + other.w)
 
 
 def _axis_index(coord: torch.Tensor, center: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
@@ -170,19 +215,28 @@ def associate_points(
     R: torch.Tensor,
     t: torch.Tensor,
     cfg: MapConfig,
+    block: Optional[Block] = None,
 ) -> PointAssociation:
     """Transform, classify, and bin a (possibly padded) pointcloud.
 
     ``points``: (..., N, 3) raw sensor-frame xyz; ``pad_mask``: (..., N)
     True for real points; ``R`` (..., 3, 3); ``t`` (..., 3), already in the
     map-center frame. Leading axes are a batch of maps.
+
+    With a ``block``, ``flat_idx`` indexes the block's cells and ``inside``
+    (and so ``mask``) holds only for points that land in the block; every
+    ray stays ``valid``, since a ray's march crosses cells of any block.
     """
     world = transform_points(points, R, t)
     noise = z_noise(points[..., 2], cfg)
     ix, iy = cell_indices(world[..., :2], torch.zeros((2,), dtype=world.dtype, device=world.device), cfg)
-    flat = flat_cell_index(ix, iy, cfg)
     valid = point_validity(world, t, cfg) & pad_mask
     inside = is_inside(ix, iy, cfg)
+    if block is None:
+        flat = flat_cell_index(ix, iy, cfg)
+    else:
+        flat, held = block.localize(ix, iy)
+        inside = inside & held
     return PointAssociation(
         world=world,
         noise=noise,

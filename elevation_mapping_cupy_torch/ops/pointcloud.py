@@ -9,7 +9,9 @@ of tests/golden/reference_numpy.py, as in the JAX package.
 Each function returns new tensors and leaves its inputs as they were. Every
 tensor may carry leading batch axes, one map each: layers (..., 7, H, W),
 the association's fields (..., N), per-map scalars (...,). The scatters hand
-all maps of a batch to one K1 launch.
+all maps of a batch to one K1 launch. The layers may be a block of a larger
+map (``geometry.Block``) with an association made for that block: every
+stage here is per cell but the error sums and ``clear_overlap``'s window.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from ..config import MapConfig
 from . import scatter
-from .geometry import PointAssociation
+from .geometry import Block, PointAssociation
 
 __all__ = [
     "ErrorCounts",
@@ -57,9 +59,13 @@ def error_counting(
     assoc: PointAssociation,
     cfg: MapConfig,
     cell_rows: Optional[torch.Tensor] = None,
+    owned: Optional[torch.Tensor] = None,
 ) -> ErrorCounts:
-    """Count drift-compensation inliers and per-cell point totals."""
-    n = cfg.cell_n
+    """Count drift-compensation inliers and per-cell point totals. With
+    ``owned`` (..., N), the error sums count only those points (on a block,
+    the points whose cell this process owns: each point once over the
+    processes of a sharded map)."""
+    h, w = layers.shape[-2:]
     j = assoc.flat_idx
     if cell_rows is None:
         cell_rows = gather_cell_rows(layers, j)
@@ -77,15 +83,16 @@ def error_counting(
         & (map_t > cfg.traversability_inlier)
     )
     sums = scatter.scatter_add_streams_2d(
-        n,
-        n,
+        h,
+        w,
         j,
         [inlier.to(layers.dtype), assoc.mask.to(layers.dtype)],
         assoc.mask,
         exact=(True, True),
     )
-    error_sum = torch.sum(torch.where(inlier, z - map_h, 0.0), dim=-1)
-    error_cnt = torch.sum(inlier, dim=-1)
+    counted = inlier if owned is None else inlier & owned
+    error_sum = torch.sum(torch.where(counted, z - map_h, 0.0), dim=-1)
+    error_cnt = torch.sum(counted, dim=-1)
     return ErrorCounts(
         inlier_cnt=sums[..., 0, :, :],
         point_cnt=sums[..., 1, :, :],
@@ -140,7 +147,7 @@ def point_fusion(
     error_counting; ``h_delta`` (per map) is then the drift correction to
     add to the height column.
     """
-    n = cfg.cell_n
+    h, w = layers.shape[-2:]
     flat = layers.flatten(-2)  # (..., 7, H*W)
     j = assoc.flat_idx
     z = assoc.world[..., 2]
@@ -166,7 +173,7 @@ def point_fusion(
     # one scatter for the fused sums and the outlier count: a point is either
     # a fused inlier or an outlier, never both
     sums = scatter.scatter_add_multi(
-        n * n,
+        h * w,
         j,
         [
             torch.where(fuse, new_h, 0.0),
@@ -188,7 +195,7 @@ def point_fusion(
     flat[..., 4, :] = torch.where(has, 0.0, flat[..., 4, :])
     flat[..., 5, :] = torch.where(has, mean_h, flat[..., 5, :])  # R2
     flat[..., 6, :] = torch.where(has, 0.0, flat[..., 6, :])
-    newmap = sums[..., :3, :].reshape(*sums.shape[:-2], 3, n, n)
+    newmap = sums[..., :3, :].reshape(*sums.shape[:-2], 3, h, w)
     return flat.reshape(layers.shape), newmap
 
 
@@ -213,15 +220,21 @@ def average_map(layers: torch.Tensor, newmap: torch.Tensor, cfg: MapConfig) -> t
     return out
 
 
-def clear_overlap(layers: torch.Tensor, t: torch.Tensor, cfg: MapConfig) -> torch.Tensor:
+def clear_overlap(layers: torch.Tensor, t: torch.Tensor, cfg: MapConfig, block: Optional[Block] = None) -> torch.Tensor:
     """Clear cells far from the sensor height near the center
-    (elevation_mapping.py:393-410). t (..., 3)."""
+    (elevation_mapping.py:393-410). t (..., 3). The window is the map's
+    ``[lo, hi)`` square, met with ``block`` when the layers are one."""
     lo, hi = cfg.overlap_cell_range
+    r = slice(lo, hi)
+    c = slice(lo, hi)
+    if block is not None:
+        r = slice(max(lo - block.r0, 0), max(min(hi - block.r0, block.h), 0))
+        c = slice(max(lo - block.c0, 0), max(min(hi - block.c0, block.w), 0))
     tz = t[..., 2, None, None]
     hmin = tz - cfg.overlap_clear_range_z
     hmax = tz + cfg.overlap_clear_range_z
     out = layers.clone()
-    near = out[..., lo:hi, lo:hi]  # a view: the writes below land in ``out``
+    near = out[..., r, c]  # a view: the writes below land in ``out``
     ok = ~((near[..., 0, :, :] < hmin) | (near[..., 0, :, :] > hmax))
     near[..., 0, :, :] = torch.where(ok, near[..., 0, :, :], 0.0)
     near[..., 1, :, :] = torch.where(ok, near[..., 1, :, :], cfg.initial_variance)

@@ -12,12 +12,17 @@ gate.
 
 Race resolutions R1 (snapshot reads) and R3 (min-height upper-bound write)
 per tests/golden/reference_numpy.py.
+
+Every cleanup also takes a ``block`` (``geometry.Block``): the layers are
+then one process's cells of a sharded map, the rays are all of them, and
+each cell is cleaned up as on the whole map. ``reduce`` sums the gated
+march's segment counts over the processes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +30,7 @@ import torch.nn.functional as F
 from ..config import MapConfig
 from ..state import stack_tensors
 from . import cuda_march, scatter
-from .geometry import PointAssociation, true_div
+from .geometry import Block, PointAssociation, true_div
 
 __all__ = [
     "visibility_cleanup",
@@ -100,6 +105,8 @@ def visibility_cleanup(
     t: torch.Tensor,
     cfg: MapConfig,
     with_aux: bool = False,
+    block: Optional[Block] = None,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """Dispatch on cfg.raycast_mode ("polar" / "exact" / "auto").
 
@@ -110,19 +117,22 @@ def visibility_cleanup(
 
     A batch of maps (a leading axis on every argument) takes the polar cube
     as one pass over all maps, and the exact march as one K2 launch per map.
+    With a ``block`` the layers are those cells of the map; ``reduce`` sums
+    the gated march's segment counts over the processes of a sharded map.
     """
     if not cfg.enable_visibility_cleanup or cfg.n_ray_steps <= 0:
         return (layers, _no_gate_aux(layers)) if with_aux else layers
     mode = resolve_raycast_mode(cfg)
     if mode == "polar":
-        out = visibility_cleanup_polar(layers, normal, assoc, inlier_cnt, t, cfg)
+        out = visibility_cleanup_polar(layers, normal, assoc, inlier_cnt, t, cfg, block)
         return (out, _no_gate_aux(layers)) if with_aux else out
     if mode == "exact":
         resolve_exact_impl(cfg)  # an unknown implementation raises here
+        kw = dict(block=block, reduce=reduce)
         if layers.dim() == 3:
-            return visibility_cleanup_exact(layers, normal, assoc, inlier_cnt, t, cfg, with_aux=with_aux)
+            return visibility_cleanup_exact(layers, normal, assoc, inlier_cnt, t, cfg, with_aux=with_aux, **kw)
         outs = [
-            visibility_cleanup_exact(layers[b], normal[b], assoc.map(b), inlier_cnt[b], t[b], cfg, with_aux=True)
+            visibility_cleanup_exact(layers[b], normal[b], assoc.map(b), inlier_cnt[b], t[b], cfg, True, **kw)
             for b in range(layers.shape[0])
         ]
         out = stack_tensors([o for o, _ in outs])
@@ -157,25 +167,40 @@ def exact_precompute(
     return torch.stack([snap[0], q, ub_thresh, code, nrm[0], nrm[1], nrm[2], pad], dim=1)
 
 
-def exact_gate(pack: torch.Tensor, cfg: MapConfig) -> cuda_march.Gate:
+def exact_gate(pack: torch.Tensor, cfg: MapConfig, block: Optional[Block] = None) -> cuda_march.Gate:
     """Gate table of ``_exact_gated`` (raycast.py:689-704): per cell the
     height below which a sample can write (the upper bound of an invalid
     cell, the penetration threshold of an eligible one, -inf otherwise and
-    on the border), its max over blocks of B x B cells, dilated by the 3x3
-    block neighbourhood."""
+    on the border), its max over gate blocks of B x B cells, dilated by the
+    3x3 gate block neighbourhood.
+
+    For the cells of a ``block`` the table covers the gate blocks within one
+    of the block's (cells outside the block write nothing here, -inf), so a
+    segment that starts outside it cannot reach the block: the gate stays
+    exact."""
     n = cfg.cell_n
     B = _GATE_BLOCK
+    if block is None:
+        block = Block.whole(n, n)
     zgate = torch.where(
         pack[:, 3] == 1.0,
         pack[:, 2],
         torch.where(pack[:, 3] == 2.0, pack[:, 0] - 0.01 + pack[:, 1], -math.inf),
-    ).reshape(n, n)
+    ).reshape(block.h, block.w)
     nb = -(-n // B)
-    zpad = torch.full((nb * B, nb * B), -math.inf, dtype=pack.dtype, device=pack.device)
-    zpad[1 : n - 1, 1 : n - 1] = zgate[1:-1, 1:-1]   # the border never writes
-    blkmax = zpad.reshape(nb, B, nb, B).amax(dim=(1, 3))
+    g0 = (max(block.r0 // B - 1, 0), max(block.c0 // B - 1, 0))
+    g1 = (min(-(-(block.r0 + block.h) // B) + 1, nb), min(-(-(block.c0 + block.w) // B) + 1, nb))
+    rows, cols = g1[0] - g0[0], g1[1] - g0[1]
+    zpad = torch.full((rows * B, cols * B), -math.inf, dtype=pack.dtype, device=pack.device)
+    # the border never writes: the block's cells within rows and columns
+    # [1, n - 1), at their place in the window
+    r = (max(block.r0, 1), min(block.r0 + block.h, n - 1))
+    c = (max(block.c0, 1), min(block.c0 + block.w, n - 1))
+    zpad[r[0] - g0[0] * B : r[1] - g0[0] * B, c[0] - g0[1] * B : c[1] - g0[1] * B] = \
+        zgate[r[0] - block.r0 : r[1] - block.r0, c[0] - block.c0 : c[1] - block.c0]
+    blkmax = zpad.reshape(rows, B, cols, B).amax(dim=(1, 3))
     table = F.max_pool2d(blkmax[None, None], 3, stride=1, padding=1)[0, 0]
-    return cuda_march.Gate(table.reshape(-1).contiguous(), _GATE_SEG, B, _GATE_EPS)
+    return cuda_march.Gate(table.contiguous(), _GATE_SEG, B, _GATE_EPS, g0)
 
 
 def visibility_cleanup_exact(
@@ -186,13 +211,20 @@ def visibility_cleanup_exact(
     t: torch.Tensor,
     cfg: MapConfig,
     with_aux: bool = False,
+    block: Optional[Block] = None,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """Exact visibility cleanup (raycast.py:142-190): every ray marched in
     steps of res/sqrt(2), each fresh sample in a cell it penetrates
     decrementing the cell's validity and adding to its variance, samples
     below an invalid cell's upper bound lowering it. One K2 launch; the
     gated march also returns its segment survivor fraction in aux (0.0 on an
-    empty march, raycast.py:906-914)."""
+    empty march, raycast.py:906-914).
+
+    On a ``block`` K2 writes only the block's cells, and its gate passes
+    only segments that can reach them; ``reduce`` sums the segment counts
+    over the processes, so the fraction is that of (process, segment) pairs
+    that survive, the work of the whole group."""
     if not cfg.enable_visibility_cleanup or cfg.n_ray_steps <= 0:
         return (layers, _no_gate_aux(layers)) if with_aux else layers
     impl = resolve_exact_impl(cfg)
@@ -202,8 +234,8 @@ def visibility_cleanup_exact(
             "use raycast_exact_impl='scan' for other dtypes"
         )
     pack = exact_precompute(layers, normal, inlier_cnt, cfg)
-    gate = exact_gate(pack, cfg) if impl == "gated" else None
-    res = cuda_march.exact_march(pack, assoc.world, assoc.valid, t.to(pack.dtype), cfg, gate)
+    gate = exact_gate(pack, cfg, block) if impl == "gated" else None
+    res = cuda_march.exact_march(pack, assoc.world, assoc.valid, t.to(pack.dtype), cfg, gate, block)
 
     out = layers.reshape(7, -1).clone()
     out[2] -= res.dec
@@ -216,7 +248,8 @@ def visibility_cleanup_exact(
         return out
     if gate is None:
         return out, _no_gate_aux(layers)
-    surv, total = res.counts[0], res.counts[1]
+    counts = res.counts if reduce is None else reduce(res.counts)
+    surv, total = counts[0], counts[1]
     frac = torch.where(total > 0, surv.to(torch.float32) / torch.clamp(total, min=1).to(torch.float32), 0.0)
     return out, {"gate_survivor_frac": frac.to(layers.dtype)}
 
@@ -310,6 +343,7 @@ def visibility_cleanup_polar(
     inlier_cnt: torch.Tensor,
     t: torch.Tensor,
     cfg: MapConfig,
+    block: Optional[Block] = None,
 ) -> torch.Tensor:
     """Shadow-cube visibility cleanup (the JAX package's
     ``visibility_cleanup_polar``, raycast.py:1008-1237).
@@ -326,12 +360,16 @@ def visibility_cleanup_polar(
     that one launch, each map into its own cube. The per-cell evaluation's
     (cells x S) tensors run over at most ``POLAR_EVAL_BYTES`` of them at a
     time: maps beyond that share of the batch are evaluated in later chunks.
+
+    On a ``block`` the cube is built from every ray, as on the whole map,
+    and only the block's cells are evaluated, each at its global centre.
     """
     single = layers.dim() == 3
     if single:
         layers, normal, inlier_cnt, t = layers[None], normal[None], inlier_cnt[None], t[None]
         assoc = PointAssociation(*(f[None] for f in assoc))
-    n = cfg.cell_n
+    if block is None:
+        block = Block.whole(cfg.cell_n, cfg.cell_n)
     A = cfg.azimuth_bins
     S = cfg.raycast_elevation_bins
     R = cfg.n_ray_steps + 2
@@ -385,9 +423,9 @@ def visibility_cleanup_polar(
             levels.append(torch.minimum(prev, torch.roll(prev, -(1 << (lv - 1)), dims=1)))
         pyramid = torch.stack(levels, dim=1).reshape(nb, (n_levels + 1) * A * R, S)  # (B, L+1, A, R, S)
 
-    per_map = n * n * S * layers.element_size()
+    per_map = block.h * block.w * S * layers.element_size()
     chunk = max(1, min(nb, POLAR_EVAL_BYTES // per_map))
-    geo = (A, R, S, n_levels)
+    geo = (A, R, S, n_levels, block)
     out = torch.cat([
         _polar_evaluate(
             layers[b0:b0 + chunk], normal[b0:b0 + chunk], inlier_cnt[b0:b0 + chunk], t[b0:b0 + chunk],
@@ -411,7 +449,7 @@ def _polar_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, ge
     of maps: each cell's azimuth-window query of the prefix cube
     ``pref_flat`` (B, A*R, 2S) and its row of ``total`` (B, R, 2S), the
     penetration test over the S buckets, and the layer updates."""
-    A, R, S, n_levels = geo
+    A, R, S, n_levels, block = geo
     n = cfg.cell_n
     step = cfg.ray_step
     dt = layers.dtype
@@ -419,9 +457,9 @@ def _polar_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, ge
     two_pi = 2.0 * math.pi
     tx, ty, tz = (t[:, i, None] for i in range(3))
 
-    i = torch.arange(n * n, dtype=torch.int32, device=dev)
-    row_i = i // n
-    col_i = i % n
+    i = torch.arange(block.h * block.w, dtype=torch.int32, device=dev)
+    row_i = block.r0 + i // block.w
+    col_i = block.c0 + i % block.w
     cx = (row_i.to(dt) + 0.5 - 0.5 * n) * cfg.resolution - tx
     cy = (col_i.to(dt) + 0.5 - 0.5 * n) * cfg.resolution - ty
     r_c = torch.sqrt(cx * cx + cy * cy)

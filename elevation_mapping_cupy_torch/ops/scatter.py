@@ -11,10 +11,16 @@ Every function takes leading batch axes on its per-point tensors (the maps
 of a batch, each with its own cells): the scatter-adds hand all maps to one
 K1 launch, the others offset each map's indices into one ``scatter_reduce``.
 Unbatched tensors are a batch of one.
+
+Inside ``parallel.sharded_scatter.sharded_scatter_ctx`` (a ContextVar, as
+the JAX package's ``_SPATIAL_SHARDING``, ``scatter.py:46``),
+:func:`scatter_add_streams_2d` scatters onto this process's block of a
+spatially sharded grid instead.
 """
 
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import Sequence, Tuple
 
@@ -31,6 +37,12 @@ __all__ = [
     "scatter_or",
     "smallest_unique",
 ]
+
+
+# (mesh, axis_name, col_axis_name) set by
+# parallel.sharded_scatter.sharded_scatter_ctx: scatter_add_streams_2d calls
+# in the same context route to the shard-local scatter
+_SPATIAL_SHARDING: contextvars.ContextVar = contextvars.ContextVar("elev_spatial_sharding", default=None)
 
 
 def _masked(idx: torch.Tensor, values: torch.Tensor, mask: torch.Tensor, neutral):
@@ -77,7 +89,30 @@ def scatter_add_streams_2d(
     ``exact[k]`` marks streams whose values are integers (flags, counts).
     The JAX package's MXU kernel needs it to split the other streams into
     bf16 parts; the atomic kernel adds every stream in float32 and keeps it
-    only for the same signature (integer streams sum exactly below 2^24)."""
+    only for the same signature (integer streams sum exactly below 2^24).
+
+    Under an active ``sharded_scatter_ctx`` the call is dispatched
+    shard-locally: this process scatters the points it owns onto its own
+    block of the grid and returns that block
+    (``parallel/sharded_scatter.py``)."""
+    sharding = _SPATIAL_SHARDING.get()
+    if sharding is not None:
+        from ..parallel.sharded_scatter import sharded_scatter_add_streams_2d
+
+        return sharded_scatter_add_streams_2d(h, w, flat_idx, values, mask, tuple(exact), *sharding)
+    return scatter_add_streams_2d_local(h, w, flat_idx, values, mask, exact)
+
+
+def scatter_add_streams_2d_local(
+    h: int,
+    w: int,
+    flat_idx: torch.Tensor,
+    values: Sequence[torch.Tensor],
+    mask: torch.Tensor,
+    exact: Tuple[bool, ...],
+) -> torch.Tensor:
+    """The body of :func:`scatter_add_streams_2d` on one process's grid
+    (the whole grid, or a block of a sharded one): one K1 launch."""
     if len(exact) != len(values):
         raise ValueError(f"exact names {len(exact)} streams, values has {len(values)}")
     out = scatter_add_multi(h * w, flat_idx, values, mask)

@@ -34,7 +34,7 @@ arithmetic, and an int32 ``>>`` would sign-extend).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -113,20 +113,16 @@ class SemanticUpdate(NamedTuple):
 
 
 def _sum_features(
-    n_cells: int,
+    up: SemanticUpdate,
     assoc: PointAssociation,
     feats: torch.Tensor,     # (N, L) feature columns for this fusion
 ) -> torch.Tensor:
     """Σ feature per cell for each layer (sum_kernel), one K1 launch of L
-    streams. Returns (L, n_cells)."""
-    import math
-
-    n = int(math.isqrt(n_cells))
+    streams over the cells of ``up``'s layers. Returns (L, H, W)."""
+    h, w = up.semantic.shape[-2:]
     streams = [feats[:, k] for k in range(feats.shape[1])]
     mask = assoc.valid & assoc.inside
-    return scatter.scatter_add_streams_2d(
-        n, n, assoc.flat_idx, streams, mask, exact=(False,) * len(streams)
-    ).reshape(len(streams), n_cells)
+    return scatter.scatter_add_streams_2d(h, w, assoc.flat_idx, streams, mask, exact=(False,) * len(streams))
 
 
 def fuse_average(
@@ -138,8 +134,7 @@ def fuse_average(
     cfg: MapConfig,
 ) -> SemanticUpdate:
     """pointcloud_average (pointcloud_average.py:83-113)."""
-    n = cfg.cell_n
-    sums = _sum_features(n * n, assoc, feats).reshape(-1, n, n)
+    sums = _sum_features(up, assoc, feats)
     cnt = elev_cnt
     has = cnt > 0
     safe = torch.clamp(cnt, min=1.0)
@@ -161,9 +156,8 @@ def fuse_class_average(
 ) -> SemanticUpdate:
     """pointcloud_class_average: EMA with alpha=average_weight
     (pointcloud_class_average.py:94-126)."""
-    n = cfg.cell_n
     a = cfg.average_weight
-    sums = _sum_features(n * n, assoc, feats).reshape(-1, n, n)
+    sums = _sum_features(up, assoc, feats)
     cnt = elev_cnt
     has = cnt > 0
     safe = torch.clamp(cnt, min=1.0)
@@ -192,8 +186,7 @@ def fuse_bayesian_inference(
     variance lives in sem_new[lay] (reference: new_map), subject to the same
     per-update reset policy as the reference.
     """
-    n = cfg.cell_n
-    sums = _sum_features(n * n, assoc, feats).reshape(-1, n, n)
+    sums = _sum_features(up, assoc, feats)
     cnt = elev_cnt
     has = cnt > 0
     safe = torch.clamp(cnt, min=1.0)
@@ -230,11 +223,10 @@ def fuse_class_bayesian(
     """pointcloud_class_bayesian: Dirichlet alpha accumulation + normalization
     (pointcloud_class_bayesian.py:53-75). sem_new (alpha) persists across
     updates (delete_new_layers=0, semantic_map.py:54-56)."""
-    n = cfg.cell_n
     # alpha_kernel: theta < 0 leaves (arg_max=0, theta_max=0) and adds 0 —
     # negative features contribute nothing (custom_semantic_kernels.py:150-157)
     f = torch.clamp(feats, min=0.0)
-    sums = _sum_features(n * n, assoc, f).reshape(-1, n, n)
+    sums = _sum_features(up, assoc, f)
     lays = list(layer_ids)
     new = up.sem_new.clone()
     for k, lay in enumerate(lays):
@@ -252,6 +244,7 @@ def fuse_class_max(
     elev_cnt: torch.Tensor,
     cfg: MapConfig,
     max_classes: int = 32,
+    id_union: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> SemanticUpdate:
     """pointcloud_class_max (pointcloud_class_max.py:49-123).
 
@@ -267,8 +260,13 @@ def fuse_class_max(
     "add the previous alpha" merge is commented out as TODO
     (pointcloud_class_max.py:108-113); persistence of sem_new/id_max only
     affects id bucketing (unique over existing ids) and map shifting.
+
+    On a block of a sharded map the ids in use are the whole map's:
+    ``id_union`` gathers every process's ``max_classes`` smallest ids
+    (whose union holds the whole map's smallest), and the bucketing takes
+    the smallest of those.
     """
-    n = cfg.cell_n
+    h, w = up.semantic.shape[-2:]
     lays = list(layer_ids)
     n_lay = feats.shape[1]
     prob, cls = decode_max(feats)            # (N, L) each
@@ -277,6 +275,8 @@ def fuse_class_max(
 
     existing = up.id_max[lays].reshape(-1)
     uniq = scatter.smallest_unique(torch.cat([cls, existing]), max_classes, UNIQUE_FILL)
+    if id_union is not None:
+        uniq = scatter.smallest_unique(id_union(uniq), max_classes, UNIQUE_FILL)
 
     # bucket each (point, layer) class id; ids that fell off the static
     # unique (> max_classes distinct) would searchsorted onto a different
@@ -285,10 +285,10 @@ def fuse_class_max(
     found = uniq[bucket] == cls
     cell = torch.repeat_interleave(assoc.flat_idx, n_lay)
     pmask = torch.repeat_interleave(mask, n_lay) & found
-    flat = bucket.to(torch.int32) * (n * n) + cell.to(torch.int32)
+    flat = bucket.to(torch.int32) * (h * w) + cell.to(torch.int32)
     prob_sum = scatter.scatter_add(
-        max_classes * n * n, flat, prob.reshape(-1), pmask
-    ).reshape(max_classes, n, n)
+        max_classes * h * w, flat, prob.reshape(-1), pmask
+    ).reshape(max_classes, h, w)
 
     sem = up.semantic.clone()
     new = up.sem_new.clone()
@@ -318,14 +318,12 @@ def fuse_color(
     The point count and every layer's r, g, b sums are integer streams of
     one K1 launch (1 + 3 L streams; exact below 2^24, so merging the JAX
     package's separate scatters changes no bit)."""
-    n = cfg.cell_n
+    h, w = up.semantic.shape[-2:]
     mask = assoc.valid & assoc.inside
     streams = [torch.ones(feats.shape[0], dtype=torch.float32, device=feats.device)]
     for k in range(len(layer_ids)):
         streams.extend(c.to(torch.float32) for c in rgb_float_to_uint(feats[:, k]))
-    sums = scatter.scatter_add_streams_2d(
-        n, n, assoc.flat_idx, streams, mask, exact=(True,) * len(streams)
-    )
+    sums = scatter.scatter_add_streams_2d(h, w, assoc.flat_idx, streams, mask, exact=(True,) * len(streams))
     cnt = sums[0]
     has = cnt > 0
     safe = torch.clamp(cnt, min=1.0)

@@ -8,7 +8,8 @@ host, and each fusion present runs once over all of its layers.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import functools
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -76,9 +77,12 @@ def update_semantic_pointcloud(
     channels: Tuple[str, ...],    # channel names, len C
     elev_cnt: torch.Tensor,       # (H, W) elevation newmap count
     cfg: MapConfig,
+    id_union: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Apply every applicable fusion for one pointcloud; returns updated
-    (semantic, sem_new, id_max)."""
+    (semantic, sem_new, id_max). The layers may be a block of a sharded map
+    (with an association made for it); ``id_union`` then joins class_max's
+    class ids over the processes (``fusions.fuse_class_max``)."""
     if semantic.shape[0] == 0 or len(channels) == 0:
         return semantic, sem_new, id_max
 
@@ -88,6 +92,8 @@ def update_semantic_pointcloud(
         fn = POINTCLOUD_FUSIONS.get(fusion)
         if fn is None:
             continue
+        if fusion == "class_max" and id_union is not None:
+            fn = functools.partial(fn, id_union=id_union)
         cols = [c for c, _, f in resolved if f == fusion]
         lays = [l for _, l, f in resolved if f == fusion]
         feats = torch.stack([features[:, c] for c in cols], dim=1)

@@ -192,6 +192,59 @@ def test_march_kernel_matches_plain_version(card, shape, gated):
         assert 0 < int(got.counts[0]) <= int(got.counts[1])
 
 
+@pytest.mark.parametrize("gated", [True, False])
+def test_march_kernel_on_blocks_matches_plain_version(card, gated):
+    """K2 with block bounds (two row blocks and a tile of the deployed map,
+    as a sharded map's processes launch it) against its plain version on
+    the same block, and against the unblocked launch there: hit counts and
+    upper bounds equal, the decrement within 2e-4; with the whole map as
+    its block the launch is the unblocked one."""
+    from elevation_mapping_cupy_torch.ops.geometry import Block
+
+    cfg = chip_smoke.deployed_config().replace(raycast_mode="exact")
+    state = _aged_map(cfg, 131072)
+    pack, world, valid, t, gate = chip_smoke.march_inputs(state, cfg, 131072, np.random.default_rng(9), gated, pose=3)
+    whole = cuda_march.exact_march(pack, world, valid, t, cfg, gate)
+    n = cfg.cell_n
+    same = cuda_march.exact_march(pack, world, valid, t, cfg, gate, Block.whole(n, n))
+    _assert_march_equal(same, whole, gated)
+    for blk in (Block(0, 0, 108, n, n, n), Block(94, 0, 108, n, n, n), Block(94, 94, 108, 108, n, n)):
+        res = chip_smoke.check_block_march(state, cfg, world, valid, t, blk, gated, whole, f"block {blk}")
+        assert res["ub_cells"] > 0
+
+
+@pytest.mark.parametrize("size", sorted(chip_smoke.SPATIAL_WORLDS))
+def test_spatial_worlds_over_nccl_match_unsharded(card, size):
+    """chip_smoke's spatial worlds with NCCL carrying the halos card to
+    card, one process a card (so it runs on a machine with as many cards
+    and skips on one): K1 and K2 checked at the blocks' shapes, every
+    process launching them as the path must, and each config's gathered
+    map and sharded move_to within 1e-5 of the unsharded update on card 0
+    (99.9 % of cells). Prints each world's step times."""
+    import json
+
+    from elevation_mapping_cupy_torch.nn.traversability import DEFAULT_WEIGHT_FILE, load_weights_npz
+
+    if torch.cuda.device_count() < size:
+        pytest.skip(f"needs {size} cards: NCCL takes one rank a card")
+    rng = np.random.default_rng(0)
+    pcfg = chip_smoke.spatial_configs()["polar1024"][0]
+    cube = (1, 2, chip_smoke.MAIN_POINTS, pcfg.azimuth_bins * (pcfg.n_ray_steps + 2) * pcfg.raycast_elevation_bins)
+    chip_smoke.check_scatter_case(rng, "spatial polar cube", 1, cube[2], cube[3], (True, False), timed=False)
+    checked = chip_smoke.checked_shapes(chip_smoke.spatial_k1_cases(rng)) | {cube}
+    cfg = chip_smoke.deployed_config().replace(raycast_mode="exact")
+    march_checked = chip_smoke.march_block_shapes(chip_smoke.phase_march_blocks(_aged_map(cfg, 131072), cfg, rng))
+    w = load_weights_npz(DEFAULT_WEIGHT_FILE).to(card)
+    refs = {name: chip_smoke.spatial_reference(name, c, n, w)[0] for name, (c, n) in chip_smoke.spatial_configs().items()}
+    reports, maps, seconds = chip_smoke.run_spatial_world(size, backend="nccl")
+    numbers = chip_smoke.check_spatial_world(size, reports, maps, refs, checked, march_checked)
+    print(json.dumps({"world": size, "backend": "nccl", "seconds": seconds,
+                      "step_ms_median": {k: v["step_ms_median"] for k, v in numbers.items()},
+                      "step_ms_p90": {k: v["step_ms_p90"] for k, v in numbers.items()},
+                      "move_ms": {k: v["move_ms"] for k, v in numbers.items()},
+                      "compare": {k: v["compare"] for k, v in numbers.items()}}))
+
+
 def synthetic_march_inputs(cfg, kind: str, lanes: int, device, gated: bool):
     """K2's inputs on a made-up map where nearly every sample writes: a
     third of the cells invalid (upper-bound writes), the others eligible
