@@ -23,7 +23,12 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              depth frame's points padded to 524288: geometry and the
              class_average over three channels) and the spatial phase's
              (error counting and point fusion on every block its processes
-             compute on, untimed), with the call's time
+             compute on, untimed) and the examples' (every shape phase 17
+             gives it: each example's geometry on its map and padded cloud,
+             the semantic and class_average streams, each plane
+             decomposition's grid, the sharded world's edge and inner
+             padded blocks of 70 and 76 rows by 512 columns, B = 32 at 77x77
+             cells), with the call's time
              (CUDA events around the wrapper), the device's own time for it
              (torch.profiler), the plain version's, one PyTorch library
              call's, and the bound (bytes over 3.35 TB/s).
@@ -195,6 +200,32 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              K2 launched per process per step as the path must, at shapes
              the kernels and march phases checked, and each world's step
              ms. A rank that fails or outlasts 300 s fails the run.
+17. examples - the port's six examples (``elevation_mapping_cupy_torch
+             .examples``) as a user runs them, on ``cuda`` at the sizes they
+             ship with: the plane-decomposition demo (160x160 terrain, 1 + 5
+             updates, the overlay into a temporary directory), minimal
+             mapping (6 depth sweeps of 40000 points at 122 cells, exports,
+             a polygon query, a decomposition), semantic mapping (the sensor
+             node's 3072-point cloud with colour and two class channels, an
+             image), batched datagen (32 maps of 20000 points, 5 steps), the
+             robot stack (10 ticks of a raw 20000-point LiDAR frame through
+             the native ring and an image every third tick, submap,
+             CheckSafety, drift, a decomposition of the published
+             elevation; its YAML as the literal ``robot_stack.settings()``)
+             and the 512x512 world in a gloo world of 8 processes sharing
+             the card, all 12 frames (each process this script's
+             ``--example-world-worker`` around the example's worker). For
+             each: K1 launched as ``EXAMPLE_K1`` says (per process for the
+             world), K2 never, at shapes the kernels phase checked; the
+             lines its ``main`` prints hold ``tests/test_examples.py``'s
+             invariants (the format of the minimal and batched lines); its
+             final layers against the same ``run`` on the CPU port (1e-4 on
+             99.9 % of cells, packed colours bit for bit; the same draws,
+             made on the card, for minimal mapping and batched datagen;
+             decompositions with the same regions), the world's gathered
+             map against the unsharded card update of its 12 clouds (1e-5).
+             Each example's wall time, batched datagen's steady maps/s, the
+             robot stack's pointcloud fps and spin ms, the world's step ms.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
@@ -210,6 +241,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -318,6 +350,18 @@ SPATIAL_TOL = 1e-5
 SPATIAL_MOVE = {"exact1024": (0.5, -0.3, 0.1), "polar1024": (1.0, -0.6, 0.0)}
 SPATIAL_LAUNCHES = {"exact1024": {"scatter_add_streams": 2, "exact_march": 1},
                     "polar1024": {"scatter_add_streams": 3, "exact_march": 0}}
+EXAMPLE_WORLD = 8            # the sharded example's processes, all on cuda:0 over gloo
+# K1 launches of each example's run as it ships (K2 never runs: every
+# example resolves to the polar cleanup): per update, step or frame times
+# their number, plus 2 per plane decomposition
+EXAMPLE_K1 = {
+    "plane_decomposition_demo": 2 * 6,   # 2 per update; 1 + 5 updates
+    "minimal_mapping": 3 * 6 + 2,        # 6 updates, one decomposition
+    "semantic_mapping": 5,               # geometry 3, colour 1, class_average 1; the image none
+    "batched_datagen": 3 * 5,            # 3 per step at any B; 5 steps
+    "robot_stack": 4 * 10 + 2,           # per lidar frame geometry 3 + class_average over grass; images none
+    "large_world_sharded": 3 * 12,       # per process: 3 per step on its padded block; 12 frames
+}
 DINO_SIZE = 224
 DINO_BATCH = 16
 DINO_ITERS = 10
@@ -812,6 +856,8 @@ def phase_kernels(cfg):
         want = "global" if "cube" in kind or kind.startswith("spatial") else "private"
         if res["path"] != want:
             raise AssertionError(f"K1 {kind} N={n} took the {res['path']} path, expected {want}")
+    # the examples' shapes (their paths follow from their sizes)
+    cases.update(example_k1_cases(rng))
     check_scatter_case(rng, "zero points", 1, 0, cells, (True, True), timed=False)
     check_scatter_case(rng, "batched B=4", 4, MAIN_POINTS, cells, (False, False, True, True), timed=False)
     # the largest map of the shared-memory path and the first past it
@@ -1456,6 +1502,302 @@ def phase_spatial(kernel_regs, checked: set, march_checked: set, smi: str) -> di
     res["launches"] = {f"{name}_world{size}": res["configs"][name][f"world{size}"]["launches_by_rank"][0]
                        for name in spatial_configs() for size in SPATIAL_WORLDS}
     log("spatial: " + json.dumps({k: v for k, v in res.items() if k != "configs"}))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the examples phase
+# ---------------------------------------------------------------------------
+
+def example_k1_cases(rng) -> dict:
+    """K1 at every shape the examples phase gives it, each against its plain
+    version and timed: each example's geometry launches (error counting,
+    point fusion, the polar cube) on its map and padded cloud, the semantic
+    example's colour (4 integer streams) and class_average (2 value streams),
+    the robot stack's class_average over its grass channel, every plane
+    decomposition's moments and bad-cell count (70 % of cells in one label),
+    and for the sharded world of EXAMPLE_WORLD processes the edge and inner
+    padded blocks (64 rows and a ghost zone of ``ghost_width`` rows on each
+    inner side, by 512 columns)."""
+    from elevation_mapping_cupy_torch.examples import (
+        batched_datagen, large_world_sharded as lw, minimal_mapping, robot_stack, semantic_mapping,
+    )
+    from elevation_mapping_cupy_torch.parallel.halo import Axis
+    from elevation_mapping_cupy_torch.parallel.spatial import SpatialSharding, ghost_width
+    from elevation_mapping_cupy_torch.planeseg.extract import PreprocessingParams, resample_shape
+
+    cases = {}
+
+    def case(tag, kind, b, n, n_cells, exact, **kw):
+        cases[(f"example_{tag}_{kind}", n)] = check_scatter_case(
+            rng, f"example {tag} {kind} B={b} K={len(exact)} N={n} bins={n_cells}", b, n, n_cells, exact, **kw)
+
+    def geometry(tag, cfg, b, n, n_real=None):
+        cells = cfg.cell_n ** 2
+        case(tag, f"count{cells}", b, n, cells, (True, True), n_real=n_real)
+        case(tag, f"fusion{cells}", b, n, cells, (False, False, True, True), n_real=n_real)
+        bins = cfg.azimuth_bins * (cfg.n_ray_steps + 2) * cfg.raycast_elevation_bins
+        case(tag, "cube", b, n, bins, (True, False), n_real=n_real)
+
+    def decomposition(tag, shape, res):
+        target = PreprocessingParams().resolution
+        if target > 0 and abs(res - target) >= 1e-6:
+            shape = resample_shape(shape, res, target)
+        n = shape[0] * shape[1]
+        lab = np.where(rng.random((1, n)) < 0.7, 0, rng.integers(1, PLANESEG_BINS, (1, n))).astype(np.int32)
+        case(tag, "moments", 1, n, PLANESEG_BINS, (False,) * 10, idx_np=lab)
+        case(tag, "label_bad", 1, n, PLANESEG_BINS, (True,), idx_np=lab)
+
+    def bucket(n):  # ElevationMap's padding of a cloud
+        return max(1024, 1 << (n - 1).bit_length())
+
+    decomposition("plane_decomposition_demo", (160, 160), 0.04)
+    cfg = minimal_mapping.CONFIG
+    geometry("minimal_mapping", cfg, 1, bucket(minimal_mapping.POINTS), minimal_mapping.POINTS)
+    decomposition("minimal_mapping", (cfg.cell_n - 2,) * 2, cfg.resolution)
+    cfg, n_real = semantic_mapping.CONFIG, semantic_mapping.synth_frame()[0].size
+    n, cells = bucket(n_real), cfg.cell_n ** 2
+    geometry("semantic_mapping", cfg, 1, n, n_real)
+    case("semantic_mapping", "colour4", 1, n, cells, (True,) * 4, int_max=255, n_real=n_real)
+    case("semantic_mapping", "class_average2", 1, n, cells, (False,) * 2, n_real=n_real)
+    cfg = batched_datagen.config(20_000)
+    geometry("batched_datagen", cfg, 32, 20_000)
+    cfg = robot_stack.settings()[0]
+    n = bucket(robot_stack.POINTS)
+    geometry("robot_stack", cfg, 1, n, robot_stack.POINTS)
+    case("robot_stack", "class_average1", 1, n, cfg.cell_n ** 2, (False,), n_real=robot_stack.POINTS)
+    decomposition("robot_stack", (cfg.cell_n - 2,) * 2, cfg.resolution)
+    cfg = lw.CONFIG
+    blocks = set()
+    for rank in range(EXAMPLE_WORLD):
+        lay = SpatialSharding(Axis(tuple(range(EXAMPLE_WORLD)), rank, None), Axis((0,), 0, None))
+        blk = lay.shard(cfg.cell_n, ghost_width(cfg)).block
+        blocks.add(blk.h * blk.w)
+    for cells in sorted(blocks):
+        case("large_world_sharded", f"count{cells}", 1, cfg.max_points, cells, (True, True))
+        case("large_world_sharded", f"fusion{cells}", 1, cfg.max_points, cells, (False, False, True, True))
+    bins = cfg.azimuth_bins * (cfg.n_ray_steps + 2) * cfg.raycast_elevation_bins
+    case("large_world_sharded", "cube", 1, cfg.max_points, bins, (True, False))
+    return cases
+
+
+def example_output(module, result, argv=("--device", "cuda")) -> str:
+    """What an example's ``main`` prints for ``result`` (its ``run``
+    answering with it)."""
+    import io
+
+    run = module.run
+    module.run = lambda *a, **k: result
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            module.main(list(argv))
+    finally:
+        module.run = run
+    return buf.getvalue()
+
+
+def expect_output(tag: str, text: str, *patterns: str) -> None:
+    """Each regular expression matches a line of an example's output."""
+    for pat in patterns:
+        if not re.search(pat, text, re.M):
+            raise AssertionError(f"example {tag}: no line matches {pat!r} in:\n{text}")
+
+
+def drive_example(name: str, kernel_regs, checked: set, fn) -> tuple:
+    """One example's run on the card: every count at 0 before it, K1's
+    launches against EXAMPLE_K1 (K2 none) and its shapes against the checked
+    ones after it. Returns (result, launches, wall seconds)."""
+    torch.cuda.synchronize()
+    for kern in kernel_regs.values():
+        kern.launches = 0
+    with k1_shapes() as shapes:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {kname: kern.launches for kname, kern in kernel_regs.items()}
+    check_launches(f"example {name}", launches, 1, {"scatter_add_streams": EXAMPLE_K1[name], "exact_march": 0})
+    check_shapes(f"example {name}", shapes, checked)
+    return result, launches, wall
+
+
+def _to_cpu(x):
+    """Draws (tensors, lists, named tuples of tensors) copied to the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_cpu(v) for v in x))
+    return type(x)(_to_cpu(v) for v in x)
+
+
+def _same_planes(tag: str, got, want) -> dict:
+    """Two decompositions of maps updated on the card and on the CPU: the
+    same number of regions and labels equal on PLANESEG_MIN_SHARE of cells."""
+    share = float((got.labels == want.labels).mean())
+    if len(got.regions) != len(want.regions) or not share >= PLANESEG_MIN_SHARE:
+        raise AssertionError(f"{tag}: {len(got.regions)} regions against {len(want.regions)}, labels equal on "
+                             f"{share:.5f} of cells")
+    return {"regions": len(got.regions), "labels_equal_share": share}
+
+
+def example_world_worker(argv) -> None:
+    """One process of the sharded example's world (``--example-world-worker
+    DIR <worker arguments>``): the example's own worker, with K1's shapes
+    recorded and every count read after it, written to DIR."""
+    from elevation_mapping_cupy_torch import kernels
+    from elevation_mapping_cupy_torch.examples import large_world_sharded as lw
+
+    folder, kw = argv[0], lw.parse_worker(argv[1:])
+    regs = kernels.registered_kernels()
+    for kern in regs.values():
+        kern.launches = 0
+    with k1_shapes() as shapes:
+        lw.worker(**kw)
+    with open(os.path.join(folder, f"rank{kw['rank']}.json"), "w") as f:
+        json.dump({"launches": {n: k.launches for n, k in regs.items()}, "k1_shapes": sorted(shapes)}, f)
+
+
+def phase_examples(kernel_regs, checked: set, smi: str) -> dict:
+    """The port's six examples as a user runs them, on the card, at the
+    sizes they ship with (module docstring, phase 17)."""
+    from elevation_mapping_cupy_torch import core
+    from elevation_mapping_cupy_torch.examples import (
+        batched_datagen as bd, large_world_sharded as lw, minimal_mapping as mm,
+        plane_decomposition_demo as pd, robot_stack as rs, semantic_mapping as sm,
+    )
+    from elevation_mapping_cupy_torch.nn.traversability import default_weights
+    from elevation_mapping_cupy_torch.runtime import datagen
+    from elevation_mapping_cupy_torch.state import init_state
+
+    res = {"card": smi}
+    folder = tempfile.mkdtemp(prefix="examples_")
+
+    def report(name, numbers):
+        res[name] = numbers
+        log(f"example {name} ({smi}): " + json.dumps(numbers))
+
+    # plane decomposition demo: the same terrain on the card and the CPU
+    r, launches, wall = drive_example("plane_decomposition_demo", kernel_regs, checked,
+                                      lambda: pd.run("cuda", out=os.path.join(folder, "overlay_card.png")))
+    text = example_output(pd, r)
+    expect_output("plane_decomposition_demo", text, r"^regions: ([2-9]|\d\d+)$", r"convex 12-gon")
+    cpu = pd.run("cpu", out=os.path.join(folder, "overlay_cpu.png"), repeats=0)
+    if not np.array_equal(r["terrain"].labels, cpu["terrain"].labels):
+        raise AssertionError("example plane_decomposition_demo: labels differ from the CPU port's in "
+                             f"{int((r['terrain'].labels != cpu['terrain'].labels).sum())} cells")
+    report("plane_decomposition_demo", {
+        "wall_s": wall, "launches": launches, "regions": len(r["terrain"].regions),
+        "plane_max_diff_from_cpu": _same_regions("plane_decomposition_demo", r["terrain"], cpu["terrain"]),
+        "cpu_compare": _same_terrain_layers("plane_decomposition_demo", r["terrain"], cpu["terrain"]),
+        "timing_report": r["timing_report"], "output": text.splitlines()})
+
+    # minimal mapping: the card's draws, copied, drive the CPU run
+    r, launches, wall = drive_example("minimal_mapping", kernel_regs, checked, lambda: mm.run("cuda"))
+    text = example_output(mm, r)
+    expect_output("minimal_mapping", text, *(rf"^{layer}\s+valid=\s*\d+ range=\[[-+]\d" for layer in mm.LAYERS),
+                  r"^polygon safety: is_safe=(True|False) trav=\d", r"^plane decomposition: \d+ planar regions$")
+    cpu = mm.run("cpu", draws=_to_cpu(mm.make_draws("cuda")))
+    if bool(r["polygon"][0]) != bool(cpu["polygon"][0]) or abs(r["polygon"][1] - cpu["polygon"][1]) > CMP_ATOL:
+        raise AssertionError(f"example minimal_mapping: polygon {r['polygon']} against the CPU's {cpu['polygon']}")
+    report("minimal_mapping", {
+        "wall_s": wall, "launches": launches, "cpu_compare": _compare_layers("minimal_mapping", r["layers"],
+                                                                             cpu["layers"]),
+        "planes": _same_planes("minimal_mapping", r["planes"], cpu["planes"]), "output": text.splitlines()})
+
+    # semantic mapping: NumPy-seeded inputs on both
+    r, launches, wall = drive_example("semantic_mapping", kernel_regs, checked, lambda: sm.run("cuda"))
+    text = example_output(sm, r)
+    expect_output("semantic_mapping", text, r"green-dominant world: True",
+                  *(rf"^layer {layer}\s+finite cells: \d+$" for layer in ("elevation", "rgb", "grass", "obstacle")))
+    cpu = sm.run("cpu")
+    report("semantic_mapping", {
+        "wall_s": wall, "launches": launches,
+        "cpu_compare": _compare_layers("semantic_mapping", r["layers"], cpu["layers"], packed=("rgb",)),
+        "output": text.splitlines()})
+
+    # batched datagen at 32 maps of 20000 points, 5 steps; the same draws
+    # (one generator of seed 0 on the card) drive the CPU run
+    r, launches, wall = drive_example("batched_datagen", kernel_regs, checked, lambda: bd.run("cuda"))
+    text = example_output(bd, r)
+    expect_output("batched_datagen", text, r"^devices=1  envs=32  cells=77\^2  pts/env=20000$",
+                  *(rf"^step {k}: +[0-9.]+ ms  \( *[0-9.]+ maps/s\)$" for k in range(5)),
+                  r"^steady-state: [0-9.]+ maps/s$")
+    gen = datagen.make_generator(0, "cuda")
+    draws = [_to_cpu(datagen.draw_batch_clouds(gen, 32, r["cfg"].cell_n, 20_000)) for _ in range(5)]
+    cpu = bd.run("cpu", draws=draws)
+    names = ("elevation", "variance", "is_valid", "traversability")
+    got, want = r["states"].layers.cpu().numpy(), cpu["states"].layers.numpy()
+    stats = _share_within("batched_datagen", {n: got[:, i] for i, n in enumerate(names)},
+                          {n: want[:, i] for i, n in enumerate(names)}, CMP_ATOL, CMP_MIN_SHARE)
+    report("batched_datagen", {
+        "wall_s": wall, "launches": launches, "step_ms": [x * 1e3 for x in r["seconds"]],
+        "maps_per_s_steady": r["maps_per_s"], "cpu_compare": stats, "output": text.splitlines()})
+
+    # robot stack: the YAML as its literal (the card's machine has no PyYAML)
+    r, launches, wall = drive_example("robot_stack", kernel_regs, checked, lambda: rs.run("cuda", rs.settings()))
+    text = example_output(rs, r)
+    expect_output("robot_stack", text, r"sensors=\['color_cam', 'front_lidar'\]", r"dropped: 0",
+                  r"^planar regions: [23]$", r"check_safety\[platform edge\]: safe=False",
+                  r"^foothold polygon: convex")
+    cpu = rs.run("cpu", rs.settings())
+    if r["safety"].keys() != cpu["safety"].keys() or any(
+            r["safety"][k][0] != cpu["safety"][k][0] or abs(r["safety"][k][1] - cpu["safety"][k][1]) > CMP_ATOL
+            for k in r["safety"]):
+        raise AssertionError(f"example robot_stack: safety {r['safety']} against the CPU's {cpu['safety']}")
+    if abs(r["drift"] - cpu["drift"]) > CMP_ATOL or sorted(r["published"]) != sorted(cpu["published"]):
+        raise AssertionError("example robot_stack: drift or published layers differ from the CPU run's")
+    spin_ms = np.array(r["spin_s"]) * 1e3
+    report("robot_stack", {
+        "wall_s": wall, "launches": launches, "pointcloud_fps": r["fps"], "spin_ms": spin_ms.tolist(),
+        "spin_ms_median": float(np.median(spin_ms[1:])), "spin_ms_p90": float(np.percentile(spin_ms[1:], 90)),
+        "cpu_compare": _compare_layers("robot_stack", r["layers"], cpu["layers"], packed=("rgb",)),
+        "published_compare": _compare_layers("robot_stack published", r["published"], cpu["published"],
+                                             packed=("rgb",)),
+        "submap_compare": _compare_layers("robot_stack submap", {"e": r["submap"]}, {"e": cpu["submap"]}),
+        "planes": _same_planes("robot_stack", r["terrain"], cpu["terrain"]), "output": text.splitlines()})
+
+    # the sharded world: EXAMPLE_WORLD processes on the card over gloo,
+    # each started as this script's --example-world-worker around the
+    # example's own worker; the gathered map against the unsharded card
+    # update of the same clouds
+    spy = tempfile.mkdtemp(prefix="examples_world_")
+    argv = [sys.executable, os.path.abspath(__file__), "--example-world-worker", spy]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = lw.run("cuda", world=EXAMPLE_WORLD, worker_argv=argv)
+    wall = time.perf_counter() - t0
+    if r["backend"] != "gloo":
+        raise AssertionError(f"example large_world_sharded: backend {r['backend']} on one card")
+    per_rank = []
+    for rank in range(EXAMPLE_WORLD):
+        with open(os.path.join(spy, f"rank{rank}.json")) as f:
+            per_rank.append(json.load(f))
+        tag = f"example large_world_sharded rank {rank}"
+        check_launches(tag, per_rank[-1]["launches"], 1,
+                       {"scatter_add_streams": EXAMPLE_K1["large_world_sharded"], "exact_march": 0})
+        check_shapes(tag, {tuple(x) for x in per_rank[-1]["k1_shapes"]}, checked)
+    text = example_output(lw, r)
+    expect_output("large_world_sharded", text, r"512x512 cells .* over 8 shards", r"building A top: 1\.2",
+                  r"^sharded world map ok$")
+    cfg, w = lw.CONFIG, default_weights().to("cuda")
+    ref = init_state(cfg, "cuda")
+    mask = torch.ones(cfg.max_points, dtype=torch.bool, device="cuda")
+    for pts in lw.clouds():
+        ref = core.update_pointcloud(ref, torch.from_numpy(pts).cuda(), mask, torch.eye(3, device="cuda"),
+                                     torch.from_numpy(lw.SENSOR_T).cuda(), 0.0, 0.0, w, cfg)
+    stats = _share_within("large_world_sharded", {"layers": r["layers"], "normal": r["normal"]},
+                          {"layers": ref.layers.cpu().numpy(), "normal": ref.normal.cpu().numpy()},
+                          SPATIAL_TOL, CMP_MIN_SHARE)
+    steps = np.array([x for rep in r["reports"] for x in rep["step_s"][1:]]) * 1e3
+    report("large_world_sharded", {
+        "wall_s": wall, "world": EXAMPLE_WORLD, "transport": "gloo through host memory, all processes on cuda:0",
+        "launches": per_rank[0]["launches"], "launches_by_rank": [p["launches"] for p in per_rank],
+        "blocks": [rep["block"] for rep in r["reports"]], "step_ms_median": float(np.median(steps)),
+        "step_ms_p90": float(np.percentile(steps, 90)),
+        "first_step_ms": [rep["step_s"][0] * 1e3 for rep in r["reports"]],
+        "compare_unsharded": stats, "output": text.splitlines()})
+    res["launches"] = {name: res[name]["launches"] for name in EXAMPLE_K1}
     return res
 
 
@@ -2825,8 +3167,8 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path
     launches at the main path's cloud size (error counting, fusion, cube),
     summed and, under ``cases``, each on its own together with the semantic
     fusions', plane segmentation's, the profile path's, the batched
-    phase's and the semantic sensor path's shapes, and its launches on the
-    polar main path; its ``max_abs_err`` is the largest of
+    phase's, the semantic sensor path's and the examples' shapes, and its
+    launches on the polar main path; its ``max_abs_err`` is the largest of
     every timed case. K2's are those
     of the gated march of n_main rays (the router's first choice) and its
     launches on the exact path. ``launches_by_path`` holds every driven
@@ -2839,7 +3181,8 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path
               + [cases[(c, PLANESEG_N * PLANESEG_N)] for c in PLANESEG_CASES]
               + [cases[(c, PROFILE_BUCKET)] for c in PROFILE_CASES]
               + [cases[(c, BATCH_POINTS)] for c in BATCH_CASES]
-              + [cases[(c, SENSOR_BUCKET)] for c in SENSOR_CASES])
+              + [cases[(c, SENSOR_BUCKET)] for c in SENSOR_CASES]
+              + [c for (kind, _), c in cases.items() if kind.startswith("example_")])
     total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
     by_path = lambda name: {path: counts[name] for path, counts in path_launches.items()}  # noqa: E731
     return {
@@ -2889,6 +3232,10 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["--example-world-worker"]:
+        example_world_worker(argv[1:])
+        return 0
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", metavar="PATH", help="also write every measured number of the run to PATH")
     parser.add_argument("--spatial-worker", nargs=4, metavar=("PORT", "RANK", "SIZE", "DIR"),
@@ -2925,6 +3272,7 @@ def main(argv=None) -> int:
     service_res = timed("service", phase_service, regs, checked)
     dino_res = timed("dino", phase_dino)
     spatial_res = timed("spatial", phase_spatial, regs, checked, march_block_shapes(block_cases), smi)
+    examples_res = timed("examples", phase_examples, regs, checked, smi)
     log(f"total: {time.perf_counter() - t0:.1f} s")
     path_launches = {
         "polar": launches, "exact": exact_launches, "semantic_mem": mem_res["launches"],
@@ -2937,6 +3285,7 @@ def main(argv=None) -> int:
         "service": service_res["launches"], "service_image": service_res["image_launches"],
         "sensor_semantic": service_res["sensor"]["launches"],
         **{f"spatial_{k}": v for k, v in spatial_res["launches"].items()},
+        **{f"example_{k}": v for k, v in examples_res["launches"].items()},
     }
     line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS, path_launches)
     if args.json:
@@ -2946,7 +3295,7 @@ def main(argv=None) -> int:
                 "semantic_mem": mem_res, "semantic_all_fusions": allf_res, "image": image_res,
                 "plugins": plugin_res, "planeseg": planeseg_res, "batched": batched_res,
                 "profile": {"stages": profile_table, "launches": profile_launches, "cpu_compare": profile_cmp},
-                "service": service_res, "dino": dino_res, "spatial": spatial_res,
+                "service": service_res, "dino": dino_res, "spatial": spatial_res, "examples": examples_res,
                 "scatter_cases": list(cases.values()),
                 "march_cases": list(march_cases.values()) + list(fresh_cases.values()),
                 "march_block_cases": block_cases,

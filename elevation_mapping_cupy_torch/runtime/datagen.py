@@ -33,6 +33,9 @@ __all__ = [
     "draw_cloud",
     "cloud_from_draws",
     "simulate_depth_cloud",
+    "BatchDraws",
+    "draw_batch_clouds",
+    "batch_clouds_from_draws",
     "make_batch_clouds",
 ]
 
@@ -195,15 +198,35 @@ def simulate_depth_cloud(
     return cloud_from_draws(terrain, resolution, sensor_pos, draws, fov_deg)
 
 
+class BatchDraws(NamedTuple):
+    """The random half of :func:`make_batch_clouds`: every map's terrain
+    lattices (leading axis B) and cloud draws ((B, n) each)."""
+
+    lattices: List[torch.Tensor]
+    cloud: CloudDraws
+
+
+def draw_batch_clouds(generator: torch.Generator, batch: int, cells: int, n_points: int) -> BatchDraws:
+    return BatchDraws(draw_terrain(generator, cells, (batch,)), draw_cloud(generator, n_points, (batch,)))
+
+
 @torch.no_grad()
+def batch_clouds_from_draws(
+    draws: BatchDraws, cells: int, resolution: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched terrains and clouds from :func:`draw_batch_clouds`: returns
+    (points (B, n, 3), t (B, 3), terrain (B, cells, cells)). Every map has
+    its own terrain; the sensor stands at ``SENSOR_POS`` in each map."""
+    terrain = terrain_from_draws(draws.lattices, cells)
+    batch, dev = terrain.shape[0], terrain.device
+    pos = torch.tensor(SENSOR_POS, dtype=torch.float32, device=dev)
+    pts, t = cloud_from_draws(terrain, resolution, pos.expand(batch, 3), draws.cloud)
+    return pts, t.contiguous(), terrain
+
+
 def make_batch_clouds(
     generator: torch.Generator, batch: int, cells: int, resolution: float, n_points: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Batched terrains and clouds on the generator's device: returns
-    (points (B, n, 3), t (B, 3), terrain (B, cells, cells)). Every map has
-    its own terrain; the sensor stands at ``SENSOR_POS`` in each map."""
-    dev = generator.device
-    terrain = procedural_terrain(generator, cells, resolution, batch=(batch,))
-    pos = torch.tensor(SENSOR_POS, dtype=torch.float32, device=dev)
-    pts, t = simulate_depth_cloud(generator, terrain, resolution, pos.expand(batch, 3), n_points)
-    return pts, t.contiguous(), terrain
+    """Batched terrains and clouds on the generator's device (see
+    :func:`batch_clouds_from_draws`)."""
+    return batch_clouds_from_draws(draw_batch_clouds(generator, batch, cells, n_points), cells, resolution)

@@ -241,7 +241,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "planeseg/contour.py", "planeseg/ransac.py", "planeseg/draw.py", "utils/map_io.py",
                 "runtime/faults.py", "profile.py", "runtime/service.py", "runtime/native/__init__.py",
                 "sensor/__init__.py", "sensor/dino.py", "sensor/networks.py", "sensor/image_node.py",
-                "sensor/pointcloud.py", "sensor/utils.py", "utils/convert_weights.py"):
+                "sensor/pointcloud.py", "sensor/utils.py", "utils/convert_weights.py", "examples/__init__.py",
+                "examples/plane_decomposition_demo.py", "examples/minimal_mapping.py", "examples/semantic_mapping.py",
+                "examples/batched_datagen.py", "examples/robot_stack.py", "examples/large_world_sharded.py"):
         assert sub.replace("/", os.sep) in rel, f"the scan does not reach {sub}"
     for path in files:
         assert not _forbidden_imports(path), f"{path} imports {_forbidden_imports(path)}"

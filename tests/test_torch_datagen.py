@@ -61,6 +61,30 @@ def _jax_terrain_lattices(jax, key, cells, n_octaves=3):
     ]
 
 
+def _jax_cloud_draws(jax, key, n):
+    """The draws simulate_depth_cloud makes from ``key``, as the port's
+    CloudDraws."""
+    import jax.numpy as jnp
+
+    k1, k2, k3 = jax.random.split(key, 3)
+    ang = jax.random.uniform(k1, (n,), minval=0, maxval=2 * jnp.pi)
+    return td.CloudDraws(
+        cos_az=_t(jnp.cos(ang)), sin_az=_t(jnp.sin(ang)),
+        radius_u=_t(jax.random.uniform(k2, (n,))), noise=_t(jax.random.normal(k3, (n,))),
+    )
+
+
+def _jax_batch_draws(jax, key, batch, cells, n):
+    """The draws make_batch_clouds makes from ``key`` (a key a map, split
+    into the terrain's and the cloud's), as the port's BatchDraws."""
+    lattices, clouds = [], []
+    for k in jax.random.split(key, batch):
+        k1, k2 = jax.random.split(k)
+        lattices.append(_jax_terrain_lattices(jax, k1, cells))
+        clouds.append(_jax_cloud_draws(jax, k2, n))
+    return td.BatchDraws([torch.stack(x) for x in zip(*lattices)], td.CloudDraws(*map(torch.stack, zip(*clouds))))
+
+
 @pytest.mark.parametrize("cells", [22, 64, 202])
 def test_terrain_from_jax_draws_matches_bits(cells):
     jax, jnp, jd = _jax()
@@ -80,15 +104,27 @@ def test_cloud_from_jax_draws_matches_bits(sensor):
     terrain = jd.procedural_terrain(jax.random.PRNGKey(5), cells, RES)
     pos = jnp.asarray(sensor, jnp.float32)
     want_pts, want_t = jd.simulate_depth_cloud(key, terrain, RES, pos, n)
-    k1, k2, k3 = jax.random.split(key, 3)
-    ang = jax.random.uniform(k1, (n,), minval=0, maxval=2 * jnp.pi)
-    draws = td.CloudDraws(
-        cos_az=_t(jnp.cos(ang)), sin_az=_t(jnp.sin(ang)),
-        radius_u=_t(jax.random.uniform(k2, (n,))), noise=_t(jax.random.normal(k3, (n,))),
-    )
-    got_pts, got_t = td.cloud_from_draws(_t(terrain), RES, _t(pos), draws)
+    got_pts, got_t = td.cloud_from_draws(_t(terrain), RES, _t(pos), _jax_cloud_draws(jax, key, n))
     np.testing.assert_array_equal(_bits(got_pts.numpy()), _bits(want_pts))
     np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+
+
+def test_batch_clouds_from_jax_draws_match_jax():
+    """make_batch_clouds' deterministic half on JAX's draws: every map's
+    sensor translation and x, y bit for bit; terrain and z within 2 ulps
+    (JAX jits and vmaps the batch, and XLA then contracts the value noise's
+    interpolation into FMAs; eagerly the terrain is equal bit for bit,
+    test_terrain_from_jax_draws_matches_bits)."""
+    jax, jnp, jd = _jax()
+    B, cells, n = 3, 64, 3000
+    key = jax.random.PRNGKey(21)
+    want_pts, want_t, want_terrain = (np.asarray(x) for x in jd.make_batch_clouds(key, B, cells, RES, n))
+    draws = _jax_batch_draws(jax, key, B, cells, n)
+    pts, t, terrain = (x.numpy() for x in td.batch_clouds_from_draws(draws, cells, RES))
+    np.testing.assert_array_equal(_bits(t), _bits(want_t))
+    np.testing.assert_array_equal(_bits(pts[..., :2]), _bits(want_pts[..., :2]))
+    np.testing.assert_allclose(terrain, want_terrain, rtol=0, atol=1.2e-7)
+    np.testing.assert_allclose(pts[..., 2], want_pts[..., 2], rtol=0, atol=2.4e-7)
 
 
 def test_make_batch_clouds_shapes_and_statistics():
