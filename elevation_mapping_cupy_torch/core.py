@@ -29,6 +29,7 @@ from typing import Dict, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
+from . import tracing
 from .config import MapConfig
 from .nn.traversability import TravFilter
 from .ops import image as img_ops
@@ -137,11 +138,12 @@ def _update_impl(
     channels: Tuple[str, ...] = (),
 ) -> Tuple[MapState, Dict[str, torch.Tensor]]:
     """One update of one map: the batched update at B = 1."""
-    out, aux = update_batch_aux(
-        MapState(*(x[None] for x in state)), points[None], pad_mask[None], R[None], t[None],
-        position_noise, orientation_noise, weights, cfg, channels,
-    )
-    return take_map(out, 0), {k: v[0] for k, v in aux.items()}
+    with tracing.span("core.update"):
+        out, aux = update_batch_aux(
+            MapState(*(x[None] for x in state)), points[None], pad_mask[None], R[None], t[None],
+            position_noise, orientation_noise, weights, cfg, channels,
+        )
+        return take_map(out, 0), {k: v[0] for k, v in aux.items()}
 
 
 @torch.no_grad()
@@ -172,66 +174,77 @@ def update_batch_aux(
     result's ghost cells hold what the stencils could reach from the block:
     the caller keeps the owned block."""
     dev, dt = state.layers.device, state.layers.dtype
-    position_noise = torch.as_tensor(position_noise, dtype=dt, device=dev)
-    orientation_noise = torch.as_tensor(orientation_noise, dtype=dt, device=dev)
+    position_noise = tracing.upload(position_noise, dev, dt)
+    orientation_noise = tracing.upload(orientation_noise, dev, dt)
     block = None if shard is None else shard.block
+    # the stages: host spans, timed on the stream too while a profiler runs
+    on_card = dev.type == "cuda"
 
-    t_c = t - state.center            # shift_translation_to_map_center
-    assoc = associate_points(points[..., :3], pad_mask, R, t_c, cfg, block)
-
-    layers = state.layers
-    # one shared row-gather of the point cells feeds both stages
-    cell_rows = pc.gather_cell_rows(layers, assoc.flat_idx)
-    if shard is None:
-        counts = pc.error_counting(layers, assoc, cfg, cell_rows)
-    else:
-        counts = pc.error_counting(layers, assoc, cfg, cell_rows, owned=shard.owns(assoc.flat_idx))
-        sums = shard.sum(torch.stack([counts.error_sum.double(), counts.error_cnt.double()]))
-        counts = counts._replace(error_sum=sums[0].to(dt), error_cnt=sums[1].to(counts.error_cnt.dtype))
-    layers, mean_error, additive, h_delta = pc.apply_drift_compensation(
-        layers,
-        counts,
-        position_noise,
-        orientation_noise,
-        state.mean_error,
-        state.additive_mean_error,
-        cfg,
-    )
+    with tracing.span("core.associate", stream=on_card):
+        t_c = t - state.center            # shift_translation_to_map_center
+        assoc = associate_points(points[..., :3], pad_mask, R, t_c, cfg, block)
+        layers = state.layers
+        # one shared row-gather of the point cells feeds both stages
+        cell_rows = pc.gather_cell_rows(layers, assoc.flat_idx)
+    with tracing.span("core.error_counting", stream=on_card):
+        if shard is None:
+            counts = pc.error_counting(layers, assoc, cfg, cell_rows)
+        else:
+            counts = pc.error_counting(layers, assoc, cfg, cell_rows, owned=shard.owns(assoc.flat_idx))
+            sums = shard.sum(torch.stack([counts.error_sum.double(), counts.error_cnt.double()]))
+            counts = counts._replace(error_sum=sums[0].to(dt), error_cnt=sums[1].to(counts.error_cnt.dtype))
+    with tracing.span("core.drift", stream=on_card):
+        layers, mean_error, additive, h_delta = pc.apply_drift_compensation(
+            layers,
+            counts,
+            position_noise,
+            orientation_noise,
+            state.mean_error,
+            state.additive_mean_error,
+            cfg,
+        )
     # fusion decisions read the drift-compensated snapshot (R1)
-    layers, newmap = pc.point_fusion(layers, assoc, counts.point_cnt, cfg, cell_rows, h_delta)
+    with tracing.span("core.fusion", stream=on_card):
+        layers, newmap = pc.point_fusion(layers, assoc, counts.point_cnt, cfg, cell_rows, h_delta)
     layers, ray_aux = rc.visibility_cleanup(
         layers, state.normal, assoc, counts.inlier_cnt, t_c, cfg, with_aux=True,
         block=block, reduce=None if shard is None else shard.sum,
     )
-    layers = pc.average_map(layers, newmap, cfg)
+    with tracing.span("core.average", stream=on_card):
+        layers = pc.average_map(layers, newmap, cfg)
 
     semantic, sem_new, id_max = state.semantic, state.sem_new, state.id_max
     if channels:
-        per_map = [
-            update_semantic_pointcloud(
-                semantic[b],
-                sem_new[b],
-                id_max[b],
-                assoc.map(b),
-                points[b, :, 3 : 3 + len(channels)],
-                channels,
-                newmap[b, 2],
-                cfg,
-                None if shard is None else shard.gather,
-            )
-            for b in range(layers.shape[0])
-        ]
-        semantic, sem_new, id_max = (stack_tensors(xs) for xs in zip(*per_map))
+        with tracing.span("core.semantic", stream=on_card):
+            per_map = [
+                update_semantic_pointcloud(
+                    semantic[b],
+                    sem_new[b],
+                    id_max[b],
+                    assoc.map(b),
+                    points[b, :, 3 : 3 + len(channels)],
+                    channels,
+                    newmap[b, 2],
+                    cfg,
+                    None if shard is None else shard.gather,
+                )
+                for b in range(layers.shape[0])
+            ]
+            semantic, sem_new, id_max = (stack_tensors(xs) for xs in zip(*per_map))
 
     if cfg.enable_overlap_clearance:
-        layers = pc.clear_overlap(layers, t_c, cfg, block)
-    height, height_mask = layers[:, 5], layers[:, 2] + layers[:, 6]
-    edges = None
-    if shard is not None:
-        edges = shard.edges(torch.stack([height, height_mask], dim=-3), cfg.dilation_size)
-    trav_input, _ = stencil.dilation_fill(height, height_mask, cfg.dilation_size, block, edges)
-    layers = _apply_traversability(layers, trav_input, weights)
-    normal = stencil.surface_normals(trav_input, layers[:, 2], cfg.resolution, block)
+        with tracing.span("core.overlap_clearance", stream=on_card):
+            layers = pc.clear_overlap(layers, t_c, cfg, block)
+    with tracing.span("core.dilation", stream=on_card):
+        height, height_mask = layers[:, 5], layers[:, 2] + layers[:, 6]
+        edges = None
+        if shard is not None:
+            edges = shard.edges(torch.stack([height, height_mask], dim=-3), cfg.dilation_size)
+        trav_input, _ = stencil.dilation_fill(height, height_mask, cfg.dilation_size, block, edges)
+    with tracing.span("core.traversability", stream=on_card):
+        layers = _apply_traversability(layers, trav_input, weights)
+    with tracing.span("core.normals", stream=on_card):
+        normal = stencil.surface_normals(trav_input, layers[:, 2], cfg.resolution, block)
     out = state._replace(
         layers=layers,
         normal=normal,
@@ -426,14 +439,15 @@ def move_to(state: MapState, position: torch.Tensor, R: torch.Tensor, cfg: MapCo
     moves by its own whole-cell shift, computed on the device. ``shift_xy``
     replaces :func:`shift_map_xy` (a sharded map's moves cells between
     processes)."""
-    delta = position - state.center
-    delta_pixel = _pixel_shift(delta[..., :2], cfg)
-    center = state.center.clone()
-    center[..., :2] += delta_pixel * cfg.resolution
-    center[..., 2] += delta[..., 2]
-    state = state._replace(center=center, rotation=R.to(state.rotation.dtype))
-    state = (shift_map_xy if shift_xy is None else shift_xy)(state, -delta_pixel[..., 0], -delta_pixel[..., 1], cfg)
-    return shift_map_z(state, -delta[..., 2])
+    with tracing.span("core.move_to", stream=state.layers.is_cuda):
+        delta = position - state.center
+        delta_pixel = _pixel_shift(delta[..., :2], cfg)
+        center = state.center.clone()
+        center[..., :2] += delta_pixel * cfg.resolution
+        center[..., 2] += delta[..., 2]
+        state = state._replace(center=center, rotation=R.to(state.rotation.dtype))
+        state = (shift_map_xy if shift_xy is None else shift_xy)(state, -delta_pixel[..., 0], -delta_pixel[..., 1], cfg)
+        return shift_map_z(state, -delta[..., 2])
 
 
 @torch.no_grad()

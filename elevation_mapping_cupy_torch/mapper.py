@@ -24,7 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import core
+from . import core, tracing
 from .config import DEFAULT_CORE_LAYERS, MapConfig
 from .nn.traversability import DEFAULT_WEIGHT_FILE, TravFilter, default_weights, load_weights_npz
 from .ops import polygon as poly_ops
@@ -138,24 +138,24 @@ class ElevationMap:
 
     @property
     def center(self) -> np.ndarray:
-        return self.state.center.cpu().numpy()
+        return tracing.read_back(self.state.center)
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        return tracing.upload(np.asarray(x, np.float32), self.device)
 
     def _bucket(self, n: int) -> int:
         return max(1024, 1 << int(math.ceil(math.log2(max(n, 1)))))
 
-    def _pad_points(self, pts: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _pad_points(self, pts: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Pad to a power-of-two bucket (as the JAX mapper does, so both see
-        the same padded cloud)."""
+        the same padded cloud), on the host: (points, mask)."""
         n = len(pts)
         m = self._bucket(n)
         out = np.zeros((m, pts.shape[1]), np.float32)
         out[:n] = pts
         mask = np.zeros((m,), bool)
         mask[:n] = True
-        return torch.from_numpy(out).to(self.device), torch.from_numpy(mask).to(self.device)
+        return out, mask
 
     def _grow_semantic_layers(self, new_channels: Sequence[str]) -> None:
         """Dynamic add_layer equivalent (semantic_map.py:80-97): grow the
@@ -183,7 +183,8 @@ class ElevationMap:
         self.state = core.move(self.state, self._tensor(delta_position), self.cfg)
 
     def move_to(self, position, R) -> None:
-        self.state = core.move_to(self.state, self._tensor(position), self._tensor(R), self.cfg)
+        with tracing.span("mapper.move_to"):
+            self.state = core.move_to(self.state, self._tensor(position), self._tensor(R), self.cfg)
 
     def input_pointcloud(
         self,
@@ -200,27 +201,32 @@ class ElevationMap:
         update. For an x/y/z cloud on an exact-march config with
         raycast_exact_impl="auto", the router picks the gated or the flat
         march for this update."""
-        raw_points = np.asarray(raw_points, np.float32)
-        if len(channels) != raw_points.shape[1]:
-            raise ValueError(
-                f"channels names every column: got {len(channels)} names "
-                f"for {raw_points.shape[1]} columns"
-            )
-        raw_points = raw_points[~np.isnan(raw_points[:, :3]).any(axis=1)]
-        additional = tuple(channels[3:])
-        self._grow_semantic_layers([c for c in additional if self.cfg.fusion_for_channel(c, "pointcloud")])
-        pts, mask = self._pad_points(raw_points)
-        args = (self.state, pts, mask, self._tensor(R), self._tensor(t),
-                float(position_noise), float(orientation_noise), self.weights)
-        if additional:
-            self.state = core.update_pointcloud_semantic(*args, self.cfg, additional)
-            return
-        impl = self._exact_router.route()
-        if impl is None:
-            self.state = core.update_pointcloud(*args, self.cfg)
-        else:
-            self.state, aux = core.update_pointcloud_aux(*args, self.cfg.replace(raycast_exact_impl=impl))
-            self._exact_router.observe(impl, aux["gate_survivor_frac"])
+        with tracing.span("mapper.input_pointcloud"):
+            with tracing.span("mapper.filter"):
+                raw_points = np.asarray(raw_points, np.float32)
+                if len(channels) != raw_points.shape[1]:
+                    raise ValueError(
+                        f"channels names every column: got {len(channels)} names "
+                        f"for {raw_points.shape[1]} columns"
+                    )
+                raw_points = raw_points[~np.isnan(raw_points[:, :3]).any(axis=1)]
+                additional = tuple(channels[3:])
+                self._grow_semantic_layers([c for c in additional if self.cfg.fusion_for_channel(c, "pointcloud")])
+                pts, mask = self._pad_points(raw_points)
+            with tracing.span("mapper.upload"):
+                args = (self.state, tracing.upload(pts, self.device), tracing.upload(mask, self.device),
+                        self._tensor(R), self._tensor(t), float(position_noise), float(orientation_noise),
+                        self.weights)
+            if additional:
+                self.state = core.update_pointcloud_semantic(*args, self.cfg, additional)
+                return
+            with tracing.span("mapper.route"):
+                impl = self._exact_router.route()
+            if impl is None:
+                self.state = core.update_pointcloud(*args, self.cfg)
+            else:
+                self.state, aux = core.update_pointcloud_aux(*args, self.cfg.replace(raycast_exact_impl=impl))
+                self._exact_router.observe(impl, aux["gate_survivor_frac"])
 
     def warm_raycast_impls(self, n_points: Optional[int] = None) -> List[str]:
         """Run both routed exact cleanups (gated, then flat) once, on a
@@ -299,7 +305,7 @@ class ElevationMap:
 
     def get_additive_mean_error(self) -> float:
         """Accumulated drift estimate (elevation_mapping.py:412-418)."""
-        return float(self.state.additive_mean_error.cpu())
+        return float(tracing.read_back(self.state.additive_mean_error))
 
     def update_upper_bound_with_valid_elevation(self) -> None:
         self.state = core.update_upper_bound_with_valid_elevation(self.state)
@@ -363,12 +369,12 @@ class ElevationMap:
         """Uncropped layer access (elevation_mapping.py:807-835), as host
         NumPy; None for an unknown name."""
         m = self._layer_tensor(name)
-        return None if m is None else m.to("cpu", copy=True).numpy()
+        return None if m is None else tracing.read_back(m, copy=True)
 
     # the named getters: unflipped exports, as host NumPy (a copy: a crop of
     # a CPU map's layer is a view of its state)
     def _named(self, name: str) -> np.ndarray:
-        return _export(self.state, self.cfg, name, False).to("cpu", copy=True).numpy()
+        return tracing.read_back(_export(self.state, self.cfg, name, False), copy=True)
 
     def get_elevation(self) -> np.ndarray:
         return self._named("elevation")
@@ -389,7 +395,7 @@ class ElevationMap:
         return self._named("is_upper_bound")
 
     def get_normal_maps(self) -> np.ndarray:
-        return torch.flip(self.state.normal[:, 1:-1, 1:-1], dims=(1, 2)).cpu().numpy()
+        return tracing.read_back(torch.flip(self.state.normal[:, 1:-1, 1:-1], dims=(1, 2)))
 
     def get_normal_ref(self, nx, ny, nz) -> None:
         maps = self.get_normal_maps()
@@ -403,7 +409,7 @@ class ElevationMap:
         if m is None:
             print(f"Layer {name} is not in the map")
             return
-        data[...] = torch.flip(m, dims=(0, 1)).cpu().numpy()
+        data[...] = tracing.read_back(torch.flip(m, dims=(0, 1)))
 
     def get_layers(self, names) -> Dict[str, np.ndarray]:
         """Several layers in one device->host copy: {name: (n, n) float32},
@@ -424,7 +430,7 @@ class ElevationMap:
             maps[nm] = m
         if not maps:
             return {}
-        stacked = torch.flip(torch.stack(list(maps.values())), dims=(1, 2)).cpu().numpy()
+        stacked = tracing.read_back(torch.flip(torch.stack(list(maps.values())), dims=(1, 2)))
         return {nm: stacked[i] for i, nm in enumerate(maps)}
 
     # --------------------------------------------------------------- queries
@@ -438,7 +444,7 @@ class ElevationMap:
         s = torch.sum(masked_isvalid)
         t = torch.where(s > 0, torch.sum(masked) / torch.clamp(s, min=1), 0.0)
         over = masked > (1 - cfg.safe_thresh)
-        host = torch.cat([t.view(1), torch.amax(masked).view(1), over.reshape(-1).to(t.dtype)]).cpu().numpy()
+        host = tracing.read_back(torch.cat([t.view(1), torch.amax(masked).view(1), over.reshape(-1).to(t.dtype)]))
         return float(host[0]), float(host[1]), host[2:].reshape(over.shape) > 0.5
 
     def get_polygon_traversability(self, polygon, result) -> int:
@@ -460,7 +466,7 @@ class ElevationMap:
         poly_padded = np.zeros((vpad, 2), np.float32)
         poly_padded[:nv] = clipped
         checker = self._layer_tensor(self.cfg.checker_layer)
-        t, max_untrav, over = self._polygon_stats(checker, torch.from_numpy(poly_padded).to(self.device), nv)
+        t, max_untrav, over = self._polygon_stats(checker, tracing.upload(poly_padded, self.device), nv)
         is_safe = True
         if over.sum() > self.cfg.max_unsafe_n:
             is_safe = False

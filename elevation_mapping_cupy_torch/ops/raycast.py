@@ -27,6 +27,7 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..config import MapConfig
 from ..state import stack_tensors
 from . import cuda_march, scatter
@@ -297,7 +298,7 @@ class AdaptiveExactRouter:
         when the static resolution stands (routing inactive)."""
         if not self._eligible:
             return None
-        frac = None if self._last_frac is None else float(self._last_frac)
+        frac = None if self._last_frac is None else float(tracing.read_back(torch.as_tensor(self._last_frac)))
         if self._probe_pending:
             # the last gated run was a probe: a confirming one lengthens the
             # flat streak, a refuting one resets it
@@ -377,65 +378,69 @@ def visibility_cleanup_polar(
     two_pi = 2.0 * math.pi
     nb = layers.shape[0]
 
-    p = assoc.world
-    v = p - t[:, None, :]
-    len_xy = torch.sqrt(v[..., 0] ** 2 + v[..., 1] ** 2)
-    len3d = torch.sqrt(torch.clamp(torch.sum(v * v, dim=-1), min=1e-30))
-    phi = torch.atan2(v[..., 2], len_xy)                   # elevation
-    az = torch.atan2(v[..., 1], v[..., 0])                 # azimuth [-pi, pi]
-    slope = v[..., 2] / torch.clamp(len_xy, min=1e-30)     # tan(phi)
+    on_card = layers.is_cuda
+    with tracing.span("raycast.polar_cube", stream=on_card):
+        p = assoc.world
+        v = p - t[:, None, :]
+        len_xy = torch.sqrt(v[..., 0] ** 2 + v[..., 1] ** 2)
+        len3d = torch.sqrt(torch.clamp(torch.sum(v * v, dim=-1), min=1e-30))
+        phi = torch.atan2(v[..., 2], len_xy)                   # elevation
+        az = torch.atan2(v[..., 1], v[..., 0])                 # azimuth [-pi, pi]
+        slope = v[..., 2] / torch.clamp(len_xy, min=1e-30)     # tan(phi)
 
-    a_idx = _bin((az + math.pi) * (A / two_pi), A - 1)
-    s_idx = _bin((phi + math.pi / 2) * (S / math.pi), S - 1)
+        a_idx = _bin((az + math.pi) * (A / two_pi), A - 1)
+        s_idx = _bin((phi + math.pi / 2) * (S / math.pi), S - 1)
 
-    ray_len = torch.clamp(len3d, max=cfg.max_ray_length)
-    s_max = torch.minimum(len3d - math.sqrt(0.1), ray_len)  # active span
-    r_act = torch.cos(phi) * s_max                        # xy radius bound
-    r_idx = _bin(true_div(r_act, step), R - 1, rounding=True)
-    active = assoc.valid & (r_act > 0) & (len3d > 0)
+        ray_len = torch.clamp(len3d, max=cfg.max_ray_length)
+        s_max = torch.minimum(len3d - math.sqrt(0.1), ray_len)  # active span
+        r_act = torch.cos(phi) * s_max                        # xy radius bound
+        r_idx = _bin(true_div(r_act, step), R - 1, rounding=True)
+        active = assoc.valid & (r_act > 0) & (len3d > 0)
 
-    cube_idx = (a_idx * R + r_idx) * S + s_idx            # layout (A, R, S)
-    inv_len = 1.0 / torch.clamp(ray_len, min=1e-30)
+        cube_idx = (a_idx * R + r_idx) * S + s_idx            # layout (A, R, S)
+        inv_len = 1.0 / torch.clamp(ray_len, min=1e-30)
 
-    cubes = scatter.scatter_add_multi(A * R * S, cube_idx, [torch.ones_like(inv_len), inv_len], active)
-    cubes = cubes.reshape(nb, 2, A, R, S)
-    use_bins_slope = cfg.raycast_slope_from_bins
-    if not use_bins_slope:
-        slope_cube = scatter.scatter_min(A * R * S, cube_idx, slope, active, math.inf).reshape(nb, A, R, S)
+        cubes = scatter.scatter_add_multi(A * R * S, cube_idx, [torch.ones_like(inv_len), inv_len], active)
+        cubes = cubes.reshape(nb, 2, A, R, S)
+        use_bins_slope = cfg.raycast_slope_from_bins
+        if not use_bins_slope:
+            slope_cube = scatter.scatter_min(A * R * S, cube_idx, slope, active, math.inf).reshape(nb, A, R, S)
 
-    # suffix scans along R: "rays with r_act >= r", cnt and inv packed into
-    # one (B, A, R, 2S) tensor
-    packed = torch.cat([torch.flip(torch.cumsum(torch.flip(cubes[:, i], [2]), dim=2), [2]) for i in range(2)], dim=-1)
-    del cubes
-    # azimuth prefix for range sums
-    pref = torch.cumsum(packed, dim=1)                    # (B, A, R, 2S)
-    del packed
-    total = pref[:, -1]                                   # (B, R, 2S)
+        # suffix scans along R: "rays with r_act >= r", cnt and inv packed into
+        # one (B, A, R, 2S) tensor
+        packed = torch.cat([torch.flip(torch.cumsum(torch.flip(cubes[:, i], [2]), dim=2), [2]) for i in range(2)],
+                           dim=-1)
+        del cubes
+        # azimuth prefix for range sums
+        pref = torch.cumsum(packed, dim=1)                    # (B, A, R, 2S)
+        del packed
+        total = pref[:, -1]                                   # (B, R, 2S)
 
-    # ring min-pyramid over azimuth: level l = window [a, a + 2^l)
-    n_levels = min(cfg.raycast_pyramid_levels, max(1, math.ceil(math.log2(A))))
-    pyramid = None
-    if not use_bins_slope:
-        slope_suf = torch.flip(torch.cummin(torch.flip(slope_cube, [2]), dim=2).values, [2])
-        levels = [slope_suf]
-        for lv in range(1, n_levels + 1):
-            prev = levels[-1]
-            levels.append(torch.minimum(prev, torch.roll(prev, -(1 << (lv - 1)), dims=1)))
-        pyramid = torch.stack(levels, dim=1).reshape(nb, (n_levels + 1) * A * R, S)  # (B, L+1, A, R, S)
+        # ring min-pyramid over azimuth: level l = window [a, a + 2^l)
+        n_levels = min(cfg.raycast_pyramid_levels, max(1, math.ceil(math.log2(A))))
+        pyramid = None
+        if not use_bins_slope:
+            slope_suf = torch.flip(torch.cummin(torch.flip(slope_cube, [2]), dim=2).values, [2])
+            levels = [slope_suf]
+            for lv in range(1, n_levels + 1):
+                prev = levels[-1]
+                levels.append(torch.minimum(prev, torch.roll(prev, -(1 << (lv - 1)), dims=1)))
+            pyramid = torch.stack(levels, dim=1).reshape(nb, (n_levels + 1) * A * R, S)  # (B, L+1, A, R, S)
 
-    per_map = block.h * block.w * S * layers.element_size()
-    chunk = max(1, min(nb, POLAR_EVAL_BYTES // per_map))
-    geo = (A, R, S, n_levels, block)
-    out = torch.cat([
-        _polar_evaluate(
-            layers[b0:b0 + chunk], normal[b0:b0 + chunk], inlier_cnt[b0:b0 + chunk], t[b0:b0 + chunk],
-            pref[b0:b0 + chunk].reshape(-1, A * R, 2 * S), total[b0:b0 + chunk],
-            None if pyramid is None else pyramid[b0:b0 + chunk], geo, cfg,
+    with tracing.span("raycast.polar_evaluate", stream=on_card):
+        per_map = block.h * block.w * S * layers.element_size()
+        chunk = max(1, min(nb, POLAR_EVAL_BYTES // per_map))
+        geo = (A, R, S, n_levels, block)
+        out = torch.cat([
+            _polar_evaluate(
+                layers[b0:b0 + chunk], normal[b0:b0 + chunk], inlier_cnt[b0:b0 + chunk], t[b0:b0 + chunk],
+                pref[b0:b0 + chunk].reshape(-1, A * R, 2 * S), total[b0:b0 + chunk],
+                None if pyramid is None else pyramid[b0:b0 + chunk], geo, cfg,
+            )
+            for b0 in range(0, nb, chunk)
+        ]) if chunk < nb else _polar_evaluate(
+            layers, normal, inlier_cnt, t, pref.reshape(nb, A * R, 2 * S), total, pyramid, geo, cfg
         )
-        for b0 in range(0, nb, chunk)
-    ]) if chunk < nb else _polar_evaluate(
-        layers, normal, inlier_cnt, t, pref.reshape(nb, A * R, 2 * S), total, pyramid, geo, cfg
-    )
     return out[0] if single else out
 
 

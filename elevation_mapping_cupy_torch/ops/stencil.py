@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from .geometry import Block, true_div
 
 __all__ = ["row_wrap", "dilation_fill", "surface_normals", "min_filter", "max_filter", "uniform_smooth"]
@@ -160,7 +161,7 @@ def _extreme_filter(
     h, w = map2d.shape
     fm = map2d.reshape(-1)
     fmask = mask.reshape(-1)
-    init = torch.tensor([math.inf if mode == "min" else -math.inf], dtype=fm.dtype, device=fm.device)
+    init = tracing.upload([math.inf if mode == "min" else -math.inf], fm.device, fm.dtype)
     table = _neighbor_table(h, w, size, fm.device)
     orig_invalid = fmask < 0.5
     for _ in range(iterations):

@@ -20,7 +20,7 @@ from typing import Dict, Sequence, Union
 import torch
 import torch.distributed as tdist
 
-from .. import core
+from .. import core, tracing
 from .. import state as state_mod
 from ..config import MapConfig
 from ..nn.traversability import TravFilter
@@ -66,9 +66,10 @@ def batched_update(
     every function of ``core.py``), so a caller that keeps it holds two
     states for a while.
     """
-    return core.update_batch_aux(
-        states, points, pad_mask, R, t, position_noise, orientation_noise, weights, cfg
-    )[0]
+    with tracing.span("batch.update", maps=states.layers.shape[0]):
+        return core.update_batch_aux(
+            states, points, pad_mask, R, t, position_noise, orientation_noise, weights, cfg
+        )[0]
 
 
 @torch.no_grad()

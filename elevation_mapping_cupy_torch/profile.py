@@ -9,8 +9,12 @@ Usage:
         [--trace DIR] [--cpu]
 
 Runs on the CUDA card unless ``--cpu`` is given; each stage's clock stops
-after ``torch.cuda.synchronize()``. ``--trace DIR`` writes a Chrome trace of
-the timed iterations to ``DIR/trace.json``.
+after ``torch.cuda.synchronize()``. Under the stage table it prints the
+program's own spans over the timed iterations (``tracing.summary()``): per
+span, the count, the median host ms, the self ms (without its child spans)
+and, while a profiler runs, the stream ms of the update's stages.
+``--trace DIR`` writes a Chrome trace of the timed iterations to
+``DIR/trace.json``, where the program's spans are ranges of their own.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the CUDA card")
     args = ap.parse_args(argv)
 
+    from . import tracing
     from .mapper import ElevationMap
 
     em = ElevationMap(profile_config(args.points), device="cpu" if args.cpu else None)
@@ -99,6 +104,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         prof.__enter__()
     sync()
     t_start = time.perf_counter()
+    since_ns = time.perf_counter_ns()
     for i in range(args.iters):
         pts = make_points(rng, args.points)
         t = np.array([i * 0.01, i * 0.02, 0.6], np.float32)
@@ -114,6 +120,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         timed("polygon", lambda: em.get_polygon_traversability(polygon, result))
     sync()
     total = time.perf_counter() - t_start
+    spans = tracing.summary(tracing.spans(since_ns))
     if prof is not None:
         prof.__exit__(None, None, None)
         os.makedirs(args.trace, exist_ok=True)
@@ -128,6 +135,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         a = np.asarray(v) * 1e3
         table[name] = {"mean_ms": float(a.mean()), "p99_ms": float(np.percentile(a, 99))}
         print(f"{name:<18}{table[name]['mean_ms']:>10.2f}{table[name]['p99_ms']:>10.2f}")
+    print(f"{'span':<26}{'count':>7}{'median_ms':>11}{'self_ms':>10}{'stream_ms':>11}")
+    for name, v in spans.items():
+        stream = "-" if v["stream_ms"] is None else f"{v['stream_ms'] / v['count']:.3f}"
+        print(f"{name:<26}{v['count']:>7}{v['median_ms']:>11.3f}{v['self_ms'] / v['count']:>10.3f}{stream:>11}")
     return table
 
 

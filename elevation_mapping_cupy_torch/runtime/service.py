@@ -7,6 +7,11 @@ serialization becomes explicit), per-publisher fps timers trigger layer
 exports, and a Statistics record mirrors the reference's
 `pointcloud_process_fps` topic (elevation_mapping_ros.cpp:674-685).
 
+Each step is traced (``tracing``): ``service.spin_once`` holds a
+``service.drain`` per frame popped (ring pop, header unpack, native
+deinterleave, ``SensorFrame``) and a ``service.fuse`` per frame (its request
+id is the frame's stamp); poses are ``service.update_pose``.
+
 Every torch call happens on the thread that calls ``spin_once`` (and the
 service calls); producer threads only push host bytes or ``SensorFrame``s.
 The map lives on a CUDA device unless the caller passes ``device="cpu"``.
@@ -14,6 +19,7 @@ The map lives on a CUDA device unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import queue
 import struct
@@ -24,6 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import MapConfig
 from ..mapper import ElevationMap
 from . import native
@@ -152,8 +159,13 @@ def parse_subscribers(block: Dict[str, Dict]) -> Dict[str, SubscriberConfig]:
 
 @dataclasses.dataclass
 class Statistics:
-    """Host time around each frame's map call (the torch calls it enqueues,
-    not their completion on the card), as the JAX service reports it."""
+    """The service's frame counts and, as the JAX service reports them,
+    the host's time to enqueue each frame's map call: the durations of its
+    ``service.fuse`` spans, which end when the torch calls are issued, not
+    when the card has done them (an enqueue time, not a latency).
+    ``last_update_latency`` is the last frame's, in seconds;
+    ``pointcloud_process_fps`` is one over the mean of the last 50
+    pointcloud frames'."""
 
     pointcloud_process_fps: float = 0.0
     frames_processed: int = 0
@@ -255,7 +267,8 @@ class MappingService:
         self._time_period = 1.0 / time_fps if time_fps > 0 else None
         self._last_variance = 0.0
         self._last_time = 0.0
-        self._proc_times: List[float] = []
+        # the last 50 pointcloud frames' service.fuse durations, in seconds
+        self._proc_times: "collections.deque[float]" = collections.deque(maxlen=50)
         self.publish_points_enabled = False
         # optional callable returning (N, 3) world points for
         # clear_map_with_initializer (reference: TF frame positions)
@@ -421,19 +434,20 @@ class MappingService:
     def update_pose(self, position: np.ndarray, R: np.ndarray) -> None:
         """Pose stream: lowpass → position/orientation noise for the drift
         gate (elevation_mapping_ros.cpp:480-492), then recenter the map."""
-        position = np.asarray(position, np.float64)
-        R = np.asarray(R, np.float64)
-        self._lowpass_position = (
-            (1 - self._pose_alpha) * self._lowpass_position + self._pose_alpha * position
-        )
-        self._lowpass_orientation = (
-            (1 - self._pose_alpha) * self._lowpass_orientation + self._pose_alpha * R
-        )
-        self._position_noise = float(np.linalg.norm(position - self._lowpass_position))
-        self._orientation_noise = float(
-            np.linalg.norm(R - self._lowpass_orientation)
-        )
-        self.mapper.move_to(position, R)
+        with tracing.span("service.update_pose"):
+            position = np.asarray(position, np.float64)
+            R = np.asarray(R, np.float64)
+            self._lowpass_position = (
+                (1 - self._pose_alpha) * self._lowpass_position + self._pose_alpha * position
+            )
+            self._lowpass_orientation = (
+                (1 - self._pose_alpha) * self._lowpass_orientation + self._pose_alpha * R
+            )
+            self._position_noise = float(np.linalg.norm(position - self._lowpass_position))
+            self._orientation_noise = float(
+                np.linalg.norm(R - self._lowpass_orientation)
+            )
+            self.mapper.move_to(position, R)
 
     # --------------------------------------------------------------- outputs
     def add_publisher(
@@ -450,59 +464,68 @@ class MappingService:
         """Drain the sensor queue, run due timers/publishers. Returns the
         number of frames processed."""
         now = time.monotonic() if now is None else now
-        processed = 0
-        while True:
-            # raw ring first (native deinterleave at drain time), then the
-            # regular SensorFrame queue
+        with tracing.span("service.spin_once"):
+            processed = self._drain_and_fuse()
+            if self._variance_period and now - self._last_variance >= self._variance_period:
+                self.mapper.update_variance()
+                self._last_variance = now
+            if self._time_period and now - self._last_time >= self._time_period:
+                self.mapper.update_time()
+                self._last_time = now
+            for pub in self.publishers:
+                if pub.fps > 0 and now - pub.last_publish >= 1.0 / pub.fps:
+                    # one export call and one read-back for the whole layer set
+                    out = self.mapper.get_layers(
+                        [l for l in pub.layers if self.mapper.exists_layer(l)]
+                    )
+                    pub.callback(out)
+                    pub.last_publish = now
+        return processed
+
+    def _next_frame(self) -> Optional[SensorFrame]:
+        """The next frame: the raw ring first (native deinterleave at drain
+        time), then the regular SensorFrame queue; None when both are empty."""
+        with tracing.span("service.drain") as drain:
             frame = self._pop_raw_frame()
             if frame is None:
                 try:
                     frame = self.queue.get_nowait()
                 except queue.Empty:
-                    break
-            t0 = time.perf_counter()
-            if frame.kind == "pointcloud":
-                self.mapper.input_pointcloud(
-                    frame.data, list(frame.channels), frame.R, frame.t,
-                    self._position_noise, self._orientation_noise,
-                )
-            elif frame.kind == "image":
-                self.mapper.input_image(
-                    frame.data, list(frame.channels), frame.R, frame.t,
-                    frame.K, frame.D, frame.distortion_model,
-                )
-            else:
+                    return None
+            drain.rid = frame.stamp
+            return frame
+
+    def _drain_and_fuse(self) -> int:
+        processed = 0
+        while True:
+            frame = self._next_frame()
+            if frame is None:
+                break
+            if frame.kind not in ("pointcloud", "image"):
                 self.stats.frames_dropped += 1
                 continue
-            dt = time.perf_counter() - t0
+            with tracing.span("service.fuse", rid=frame.stamp) as fuse:
+                if frame.kind == "pointcloud":
+                    self.mapper.input_pointcloud(
+                        frame.data, list(frame.channels), frame.R, frame.t,
+                        self._position_noise, self._orientation_noise,
+                    )
+                else:
+                    self.mapper.input_image(
+                        frame.data, list(frame.channels), frame.R, frame.t,
+                        frame.K, frame.D, frame.distortion_model,
+                    )
             if frame.kind == "pointcloud":
                 # the reference's fps statistic counts pointcloud callbacks
                 # only (pointCloudProcessCounter_, elevation_mapping_ros.cpp:316)
-                self._proc_times.append(dt)
-                self._proc_times = self._proc_times[-50:]
-            self.stats.last_update_latency = dt
+                self._proc_times.append(fuse.ms / 1e3)
+            self.stats.last_update_latency = fuse.ms / 1e3
             self.stats.frames_processed += 1
             processed += 1
             for cb in self._alive_cbs:
                 cb()
         if self._proc_times:
             self.stats.pointcloud_process_fps = 1.0 / float(np.mean(self._proc_times))
-
-        if self._variance_period and now - self._last_variance >= self._variance_period:
-            self.mapper.update_variance()
-            self._last_variance = now
-        if self._time_period and now - self._last_time >= self._time_period:
-            self.mapper.update_time()
-            self._last_time = now
-
-        for pub in self.publishers:
-            if pub.fps > 0 and now - pub.last_publish >= 1.0 / pub.fps:
-                # one export call and one read-back for the whole layer set
-                out = self.mapper.get_layers(
-                    [l for l in pub.layers if self.mapper.exists_layer(l)]
-                )
-                pub.callback(out)
-                pub.last_publish = now
         return processed
 
     # -------------------------------------------------------------- services

@@ -243,7 +243,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "sensor/__init__.py", "sensor/dino.py", "sensor/networks.py", "sensor/image_node.py",
                 "sensor/pointcloud.py", "sensor/utils.py", "utils/convert_weights.py", "examples/__init__.py",
                 "examples/plane_decomposition_demo.py", "examples/minimal_mapping.py", "examples/semantic_mapping.py",
-                "examples/batched_datagen.py", "examples/robot_stack.py", "examples/large_world_sharded.py"):
+                "examples/batched_datagen.py", "examples/robot_stack.py", "examples/large_world_sharded.py",
+                "tracing.py"):
         assert sub.replace("/", os.sep) in rel, f"the scan does not reach {sub}"
     for path in files:
         assert not _forbidden_imports(path), f"{path} imports {_forbidden_imports(path)}"
@@ -311,4 +312,7 @@ def test_profile_entry_point_on_cpu(capsys, tmp_path):
     assert all(v["mean_ms"] > 0 and v["p99_ms"] >= 0 for v in table.values())
     out = capsys.readouterr().out
     assert "2 iterations x 2000 points on cpu" in out and "mean_ms" in out
+    # the program's spans under the stage table, the update's stages among them
+    assert "self_ms" in out and "stream_ms" in out
+    assert all(f"\n{name} " in out for name in ("mapper.input_pointcloud", "core.update", "core.dilation"))
     assert (tmp_path / "trace.json").stat().st_size > 0
