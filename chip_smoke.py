@@ -31,7 +31,15 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              cells), with the call's time
              (CUDA events around the wrapper), the device's own time for it
              (torch.profiler), the plain version's, one PyTorch library
-             call's, and the bound (bytes over 3.35 TB/s).
+             call's, and the bound (bytes over 3.35 TB/s). Then the
+             dilation kernel against its plain version, bit for bit and one
+             launch a call, on a mapped disc of heights (with NaN) and masks
+             read from a (B, 7, n, n) stack as the update reads them: the
+             robot's update (B = 1, size 3 on the deployed map), datagen's
+             step (B = 8 and 64, size 2 on the default map) and the default
+             initialize_map (B = 1, size 10), each with its call's time, its
+             device time, the plain version's and its bound (16 bytes a
+             cell).
 4. main    - ``ElevationMap(deployed config, device="cuda")`` with the
              shipped weights takes 20 updates of a seeded synthetic scene of
              131072 points while the robot moves (``move_to``); the polar
@@ -348,8 +356,8 @@ SPATIAL_WORLDS = {2: ((2,), ("x",), None), 4: ((2, 2), ("x", "y"), "y")}  # rows
 SPATIAL_TIMEOUT_S = 300
 SPATIAL_TOL = 1e-5
 SPATIAL_MOVE = {"exact1024": (0.5, -0.3, 0.1), "polar1024": (1.0, -0.6, 0.0)}
-SPATIAL_LAUNCHES = {"exact1024": {"scatter_add_streams": 2, "exact_march": 1},
-                    "polar1024": {"scatter_add_streams": 3, "exact_march": 0}}
+SPATIAL_LAUNCHES = {"exact1024": {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1},
+                    "polar1024": {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1}}
 EXAMPLE_WORLD = 8            # the sharded example's processes, all on cuda:0 over gloo
 # K1 launches of each example's run as it ships (K2 never runs: every
 # example resolves to the polar cleanup): per update, step or frame times
@@ -361,6 +369,16 @@ EXAMPLE_K1 = {
     "batched_datagen": 3 * 5,            # 3 per step at any B; 5 steps
     "robot_stack": 4 * 10 + 2,           # per lidar frame geometry 3 + class_average over grass; images none
     "large_world_sharded": 3 * 12,       # per process: 3 per step on its padded block; 12 frames
+}
+# the dilation kernel's launches of each example's run: one per map update
+# or batched step (per process for the world), none per decomposition
+EXAMPLE_DILATION = {
+    "plane_decomposition_demo": 0,
+    "minimal_mapping": 6,
+    "semantic_mapping": 1,
+    "batched_datagen": 5,
+    "robot_stack": 10,                   # one per lidar frame; images none
+    "large_world_sharded": 12,
 }
 DINO_SIZE = 224
 DINO_BATCH = 16
@@ -866,6 +884,64 @@ def phase_kernels(cfg):
     return cases
 
 
+def dilation_inputs(rng, b: int, n: int):
+    """(heights, mask) as ``core.update_batch_aux`` hands them to the
+    dilation: channel 5 of a (b, 7, n, n) stack (one stride between maps)
+    and the sum of channels 2 and 6; valid cells on a disc with holes,
+    some with NaN heights, and a few cells outside it."""
+    yy, xx = np.mgrid[0:n, 0:n]
+    disc = np.hypot(yy - n / 2, xx - n / 2) < 0.4 * n
+    layers = np.zeros((b, 7, n, n), np.float32)
+    layers[:, 5] = rng.normal(0.0, 0.3, (b, n, n))
+    layers[:, 5][rng.random((b, n, n)) < 0.02] = np.nan
+    layers[:, 2] = disc & (rng.random((b, n, n)) < 0.85)
+    layers[:, 6] = (layers[:, 2] < 0.5) & (rng.random((b, n, n)) < 0.05)
+    layers = torch.from_numpy(layers).to("cuda")
+    return layers[:, 5], layers[:, 2] + layers[:, 6]
+
+
+def check_dilation_case(rng, label: str, b: int, n: int, size: int) -> dict:
+    """The dilation kernel against its plain version on the card at one
+    shape: both outputs bit for bit, one launch a call; then its time."""
+    from elevation_mapping_cupy_torch.ops import stencil as st
+
+    height, mask = dilation_inputs(rng, b, n)
+    before = st.KERNEL.launches
+    got = st.dilation_fill(height, mask, size)
+    torch.cuda.synchronize()
+    if st.KERNEL.launches != before + 1:
+        raise AssertionError(f"dilation {label}: {st.KERNEL.launches - before} launches in one call")
+    want = st.dilation_fill_reference(height, mask, size)
+    for part, g, w in zip(("heights", "mask"), got, want):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"dilation {label}: {part} differ from the plain version")
+    filled = int(((mask < 0.5) & (got[1] == 1.0)).sum())
+    res = {"case": label, "B": b, "n": n, "size": size, "filled_cells": filled,
+           "bound_ms": 16 * b * n * n / HBM_BYTES_PER_S * 1e3}
+    iters = 50
+    res["kernel_ms"] = _events_ms(lambda: st.dilation_fill(height, mask, size), iters)
+    res["device_ms"], res["device_ops_ms"] = _device_ms(lambda: st.dilation_fill(height, mask, size), iters)
+    res["share_of_bound"] = res["bound_ms"] / res["device_ms"]
+    res["plain_ms"] = _events_ms(lambda: st.dilation_fill_reference(height, mask, size), 3 if size >= 10 else 10)
+    res["library_ms"] = None  # no PyTorch call computes the dilation
+    log("dilation check: " + json.dumps(res))
+    return res
+
+
+def phase_dilation(cfg) -> list:
+    """The dilation kernel at the shapes its callers give it (phase 3)."""
+    from elevation_mapping_cupy_torch import MapConfig
+
+    rng = np.random.default_rng(15)
+    default = MapConfig()
+    return [
+        check_dilation_case(rng, "robot update", 1, cfg.cell_n, cfg.dilation_size),
+        check_dilation_case(rng, "datagen step B=8", 8, default.cell_n, default.dilation_size),
+        check_dilation_case(rng, "datagen step B=64", 64, default.cell_n, default.dilation_size),
+        check_dilation_case(rng, "initialize_map", 1, default.cell_n, default.dilation_size_initialize),
+    ]
+
+
 def _compare_layers(tag: str, got: dict, want: dict, packed=(), min_share: float = CMP_MIN_SHARE, where=None,
                     sums=()) -> dict:
     """Share of cells on which the card's layers agree with the CPU run's:
@@ -946,7 +1022,8 @@ def phase_main(cfg, kernel_regs):
             cmp_stats.append(_compare_layers(f"update {k}", em.get_layers(layers), cpu.get_layers(layers)))
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     peak = torch.cuda.max_memory_allocated()
-    check_launches("main path (polar)", launches, N_UPDATES, {"scatter_add_streams": 3, "exact_march": 0})
+    check_launches("main path (polar)", launches, N_UPDATES,
+                   {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1})
     mapped_state = em.state
     out = em.get_layers(layers)
     if not all(v.shape == (cfg.cell_n - 2, cfg.cell_n - 2) for v in out.values()):
@@ -1617,7 +1694,8 @@ def drive_example(name: str, kernel_regs, checked: set, fn) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {kname: kern.launches for kname, kern in kernel_regs.items()}
-    check_launches(f"example {name}", launches, 1, {"scatter_add_streams": EXAMPLE_K1[name], "exact_march": 0})
+    check_launches(f"example {name}", launches, 1, {"scatter_add_streams": EXAMPLE_K1[name], "exact_march": 0,
+                                                    "dilation_fill": EXAMPLE_DILATION[name]})
     check_shapes(f"example {name}", shapes, checked)
     return result, launches, wall
 
@@ -1775,7 +1853,8 @@ def phase_examples(kernel_regs, checked: set, smi: str) -> dict:
             per_rank.append(json.load(f))
         tag = f"example large_world_sharded rank {rank}"
         check_launches(tag, per_rank[-1]["launches"], 1,
-                       {"scatter_add_streams": EXAMPLE_K1["large_world_sharded"], "exact_march": 0})
+                       {"scatter_add_streams": EXAMPLE_K1["large_world_sharded"], "exact_march": 0,
+                        "dilation_fill": EXAMPLE_DILATION["large_world_sharded"]})
         check_shapes(tag, {tuple(x) for x in per_rank[-1]["k1_shapes"]}, checked)
     text = example_output(lw, r)
     expect_output("large_world_sharded", text, r"512x512 cells .* over 8 shards", r"building A top: 1\.2",
@@ -1853,7 +1932,8 @@ def phase_exact(cfg, kernel_regs):
         if stats:
             cmp_stats.append(stats)
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
-    check_launches("exact path", launches, EXACT_UPDATES, {"scatter_add_streams": 2, "exact_march": 1})
+    check_launches("exact path", launches, EXACT_UPDATES,
+                   {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1})
     main_routes = list(routes)
     lat_1m = [step(EXACT_UPDATES + k, 1_000_000)[0] for k in range(6)]
     prof = profile_updates(em, rng, pose=EXACT_UPDATES + 5)
@@ -1897,7 +1977,7 @@ def phase_replay(cfg, kernel_regs):
         torch.cuda.synchronize()
         launches = {name: kern.launches for name, kern in kernel_regs.items()}
         want = replay(path, cfg, snapshot_layers=LAYERS, raycast_mode="exact", device="cpu")
-    check_launches("replay", launches, 3, {"scatter_add_streams": 2, "exact_march": 1})
+    check_launches("replay", launches, 3, {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1})
     stats = [_compare_layers(f"replay frame {i}", g, c) for i, (g, c) in enumerate(zip(got, want))]
     log("replay: " + json.dumps({"frames": len(got), "launches": launches, "cpu_compare": stats}))
 
@@ -1967,7 +2047,8 @@ def drive_semantic(tag, cfg, kernel_regs, make_cloud, channels, n_updates, k1_pe
                 sums=[f"sem_new:{n}" for n in cfg.semantic_layers],
             ))
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
-    check_launches(tag, launches, n_updates, {"scatter_add_streams": k1_per_update, "exact_march": 0})
+    check_launches(tag, launches, n_updates,
+                   {"scatter_add_streams": k1_per_update, "exact_march": 0, "dilation_fill": 1})
     prof = profile_updates(em, rng, n_updates=3, pose=1 + n_updates, make_cloud=make_cloud, channels=names)
     ms = np.array(lat) * 1e3
     med = float(np.median(ms))
@@ -2109,7 +2190,8 @@ def phase_image(em, kernel_regs):
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t0)
         launches = {name: kern.launches for name, kern in kernel_regs.items()}
-        check_launches(f"image ({mode})", launches, calls, {"scatter_add_streams": 0, "exact_march": 0})
+        check_launches(f"image ({mode})", launches, calls,
+                       {"scatter_add_streams": 0, "exact_march": 0, "dilation_fill": 0})
         t0 = time.perf_counter()
         for _ in range(calls):
             cpu.input_image(img, channels, R, t, K, D)
@@ -2215,7 +2297,8 @@ def phase_plugins(em, kernel_regs):
         em.input_pointcloud(mem_cloud(rng, MAIN_POINTS, R, t), channels, R, t, 0.0, 0.0)
     torch.cuda.synchronize()
     update_launches = {name: kern.launches for name, kern in kernel_regs.items()}
-    check_launches("plugins (updates)", update_launches, PLUGIN_UPDATES, {"scatter_add_streams": 5, "exact_march": 0})
+    check_launches("plugins (updates)", update_launches, PLUGIN_UPDATES,
+                   {"scatter_add_streams": 5, "exact_march": 0, "dilation_fill": 1})
 
     cpu = ElevationMap(em.cfg, device="cpu")
     cpu.state = state_from_numpy(state_to_numpy(em.state), "cpu")
@@ -2274,6 +2357,7 @@ def phase_plugins(em, kernel_regs):
         init[tag] = m.get_layers(["elevation", "variance", "is_valid", "upper_bound"])
         if tag == "card":
             card_map = m
+    init_calls = 1 + 1 + 3  # the one above and _latency_ms's untimed call and 3 timed ones
     res["initialize_map"] = _compare_layers("initialize_map", init["card"], init["cpu"])
     valid = init["card"]["is_valid"] > 0.5
     if valid.mean() < 0.2 or not np.isfinite(init["card"]["elevation"][valid]).all():
@@ -2294,8 +2378,10 @@ def phase_plugins(em, kernel_regs):
         )
     torch.cuda.synchronize()
     export_launches = {name: kern.launches for name, kern in kernel_regs.items()}
+    # initialize_map dilates twice, at dilation_size_initialize
     check_launches("plugins (exports, polygon query, initialize_map)", export_launches, 1,
-                   {"scatter_add_streams": 0, "exact_march": 0})
+                   {"scatter_add_streams": 0, "exact_march": 0,
+                    "dilation_fill": 2 * init_calls if em.cfg.dilation_size_initialize > 0 else 0})
     res["launches_updates"], res["launches_exports"] = update_launches, export_launches
     log("plugins: " + json.dumps(res))
     return res
@@ -2356,7 +2442,8 @@ def phase_planeseg(kernel_regs, checked: set):
         terrain = pipe.update(h)
         wall.append((time.perf_counter() - t0) * 1e3)
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
-    check_launches("planeseg", launches, PLANESEG_CALLS, {"scatter_add_streams": 2, "exact_march": 0})
+    check_launches("planeseg", launches, PLANESEG_CALLS,
+                   {"scatter_add_streams": 2, "exact_march": 0, "dilation_fill": 0})
     totals = np.asarray(pipe._stats["total"]) * 1e3
     report = pipe.timing_report()
     stages = {k: float(np.mean(v) * 1e3) for k, v in pipe._stats.items()}
@@ -2415,7 +2502,7 @@ def phase_planeseg(kernel_regs, checked: set):
         batch_ms.append((time.perf_counter() - t0) * 1e3)
     batch_launches = {name: kern.launches for name, kern in kernel_regs.items()}
     check_launches("planeseg update_batch", batch_launches, PLANESEG_BATCH_CALLS,
-                   {"scatter_add_streams": 2, "exact_march": 0})
+                   {"scatter_add_streams": 2, "exact_march": 0, "dilation_fill": 0})
     for b in (0, PLANESEG_BATCH - 1):
         alone = pipe.update(hb[b])
         if not np.array_equal(batch[b].labels, alone.labels):
@@ -2460,7 +2547,8 @@ def phase_profile(kernel_regs, checked: set):
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     # its warm-up update and PROFILE_ITERS timed ones: geometry 3, colour 1,
     # class_bayesian 1
-    check_launches("profile", launches, PROFILE_ITERS + 1, {"scatter_add_streams": 5, "exact_march": 0})
+    check_launches("profile", launches, PROFILE_ITERS + 1,
+                   {"scatter_add_streams": 5, "exact_march": 0, "dilation_fill": 1})
     check_shapes("profile", shapes, checked)
 
     # one update of the profile's map on the card and on the CPU port from
@@ -2552,7 +2640,8 @@ def drive_batch(b: int, cfg, weights, kernel_regs, checked: set) -> tuple:
             lat.append(time.perf_counter() - t0)
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     peak = torch.cuda.max_memory_allocated()
-    check_launches(f"batched B={b}", launches, BATCH_STEPS, {"scatter_add_streams": 3, "exact_march": 0})
+    check_launches(f"batched B={b}", launches, BATCH_STEPS,
+                   {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1})
     check_shapes(f"batched B={b}", shapes, checked)
     valid = states.layers[:, 2] > 0.5
     share = float(valid.float().mean())
@@ -2921,7 +3010,8 @@ def drive_sensor_semantic(kernel_regs, checked: set) -> dict:
             node_ms.append((t1 - t0) * 1e3)
             clouds.append((cloud, names, R, cam))
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
-    check_launches("sensor (semantic)", launches, SENSOR_FRAMES, {"scatter_add_streams": 5, "exact_march": 0})
+    check_launches("sensor (semantic)", launches, SENSOR_FRAMES,
+                   {"scatter_add_streams": 5, "exact_march": 0, "dilation_fill": 1})
     check_shapes("sensor (semantic)", shapes, checked)
     if names != ["x", "y", "z", "rgb", *SENSOR_CHANNELS] or not np.isfinite(cloud).all():
         raise AssertionError(f"sensor: cloud columns {names} or non-finite values")
@@ -2969,7 +3059,8 @@ def phase_service(kernel_regs, checked: set):
         lat = drive_service(svc, frames[SERVICE_WARMUP:], sync=True, first=SERVICE_WARMUP)
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     peak = torch.cuda.max_memory_allocated()
-    check_launches("service", launches, SERVICE_FRAMES, {"scatter_add_streams": 3, "exact_march": 0})
+    check_launches("service", launches, SERVICE_FRAMES,
+                   {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1})
     check_shapes("service", shapes, checked)
 
     image = service_image_frame(svc)
@@ -2982,7 +3073,8 @@ def phase_service(kernel_regs, checked: set):
     torch.cuda.synchronize()
     image_ms = (time.perf_counter() - t0) * 1e3
     image_launches = {name: kern.launches for name, kern in kernel_regs.items()}
-    check_launches("service (image)", image_launches, 1, {"scatter_add_streams": 0, "exact_march": 0})
+    check_launches("service (image)", image_launches, 1,
+                   {"scatter_add_streams": 0, "exact_march": 0, "dilation_fill": 0})
     queries = service_queries(svc)
     query_ms = _latency_ms(lambda: service_queries(svc), calls=5)
 
@@ -3162,7 +3254,8 @@ BATCH_CASES = tuple(f"batch{b}_{kind}" for b in BATCH_SIZES for kind in ("count"
 SENSOR_CASES = ("sensor_count", "sensor_fusion", "sensor_cube", "sensor_features3")
 
 
-def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path_launches: dict) -> dict:
+def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path_launches: dict,
+                 dilation_cases: list) -> dict:
     """One entry per kernel. K1's numbers are those of one update's three
     launches at the main path's cloud size (error counting, fusion, cube),
     summed and, under ``cases``, each on its own together with the semantic
@@ -3171,7 +3264,8 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path
     launches on the polar main path; its ``max_abs_err`` is the largest of
     every timed case. K2's are those
     of the gated march of n_main rays (the router's first choice) and its
-    launches on the exact path. ``launches_by_path`` holds every driven
+    launches on the exact path. The dilation's are those of the robot's
+    update, with every case under ``cases``. ``launches_by_path`` holds every driven
     path's count, each read after a run that began with the counts at 0.
     ``ms`` is the call as its caller pays for it, ``device_ms`` the device's
     own time."""
@@ -3227,6 +3321,27 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path
                 "bound_by": march["bound_by"],
                 "library_ms": None,
             },
+            {
+                "name": "dilation_fill",
+                "route": "cuda",
+                "source": "elevation_mapping_cupy_torch/csrc/dilation_fill.cu",
+                "replaces": None,
+                "function": "ops/stencil.py::dilation_fill_reference (the offset loop)",
+                "checked": True,
+                "launches": launches["dilation_fill"],
+                "launches_by_path": by_path("dilation_fill"),
+                "max_abs_err": 0.0,
+                "ms": dilation_cases[0]["kernel_ms"],
+                "device_ms": dilation_cases[0]["device_ms"],
+                "plain_ms": dilation_cases[0]["plain_ms"],
+                "bound_ms": dilation_cases[0]["bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": None,
+                "cases": [
+                    {k: c[k] for k in ("case", "B", "size", "kernel_ms", "device_ms", "bound_ms", "plain_ms")}
+                    for c in dilation_cases
+                ],
+            },
         ]
     }
 
@@ -3258,6 +3373,7 @@ def main(argv=None) -> int:
     regs = timed("build", phase_build)
     cfg = deployed_config()
     cases = timed("kernels", phase_kernels, cfg)
+    dilation_cases = timed("kernels (dilation)", phase_dilation, cfg)
     main_res, launches, mapped_state = timed("main", phase_main, cfg, regs)
     march_cases, fresh_cases, block_cases = timed("march", phase_march, cfg, mapped_state)
     exact_res, exact_launches = timed("exact", phase_exact, cfg, regs)
@@ -3287,7 +3403,7 @@ def main(argv=None) -> int:
         **{f"spatial_{k}": v for k, v in spatial_res["launches"].items()},
         **{f"example_{k}": v for k, v in examples_res["launches"].items()},
     }
-    line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS, path_launches)
+    line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS, path_launches, dilation_cases)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({
@@ -3296,7 +3412,7 @@ def main(argv=None) -> int:
                 "plugins": plugin_res, "planeseg": planeseg_res, "batched": batched_res,
                 "profile": {"stages": profile_table, "launches": profile_launches, "cpu_compare": profile_cmp},
                 "service": service_res, "dino": dino_res, "spatial": spatial_res, "examples": examples_res,
-                "scatter_cases": list(cases.values()),
+                "scatter_cases": list(cases.values()), "dilation_cases": dilation_cases,
                 "march_cases": list(march_cases.values()) + list(fresh_cases.values()),
                 "march_block_cases": block_cases,
             }, f, indent=1)

@@ -138,6 +138,6 @@ class CudaKernel:
 
 def registered_kernels() -> Dict[str, CudaKernel]:
     """Every kernel of the package, by name (imports the modules that own them)."""
-    from .ops import cuda_march, cuda_scatter
+    from .ops import cuda_march, cuda_scatter, stencil
 
-    return {k.name: k for k in (cuda_scatter.KERNEL, cuda_march.KERNEL)}
+    return {k.name: k for k in (cuda_scatter.KERNEL, cuda_march.KERNEL, stencil.KERNEL)}

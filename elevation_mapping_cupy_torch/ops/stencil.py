@@ -5,17 +5,20 @@ PyTorch counterpart of ``elevation_mapping_cupy_tpu/ops/stencil.py``
 with its ``dx + dy`` "distance" and flat-index row wrap; normal_filter_kernel,
 custom_kernels.py:452-506; the min_filter / max_filter plugins,
 plugins/min_filter.py:29-118 and max_filter.py:36-113, with their 0.6 fill
-sentinel; the smooth_filter plugin, smooth_filter.py:48-59). Each static
-neighbourhood offset of the dilation and the normals is one shifted copy of
-the grid. The min/max filters gather a whole (2s+1)^2 neighbourhood at
-once through a table built once per (H, W, size), so an iteration costs a
-handful of launches instead of ~8 per offset. Maps are (H, W), square or
-not; the dilation and the normals also work on a block of a larger map
-(``geometry.Block``), the cells of one process of a sharded map.
+sentinel; the smooth_filter plugin, smooth_filter.py:48-59). On the card the
+dilation is one hand-written kernel, ``csrc/dilation_fill.cu``, one launch
+for a whole batch; on the CPU its plain version takes one shifted copy of
+the grid per neighbourhood offset, as the normals do on both. The min/max
+filters gather a whole (2s+1)^2 neighbourhood at once through a table built
+once per (H, W, size), so an iteration costs a handful of launches instead
+of ~8 per offset. Maps are (H, W), square or not; the dilation and the
+normals also work on a block of a larger map (``geometry.Block``), the cells
+of one process of a sharded map.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Optional, Tuple
@@ -24,9 +27,23 @@ import torch
 import torch.nn.functional as F
 
 from .. import tracing
+from ..kernels import CudaKernel
 from .geometry import Block, true_div
 
-__all__ = ["row_wrap", "dilation_fill", "surface_normals", "min_filter", "max_filter", "uniform_smooth"]
+__all__ = [
+    "KERNEL", "row_wrap", "dilation_fill", "dilation_fill_reference", "launch_dilation_fill",
+    "surface_normals", "min_filter", "max_filter", "uniform_smooth",
+]
+
+KERNEL = CudaKernel(
+    "dilation_fill.cu",
+    "dilation_fill",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_int32] * 4 + [ctypes.c_int64] * 4
+    + [ctypes.c_int32] * 2 + [ctypes.c_void_p],
+)
+# where the kernel finds a neighbour left or right of the block's columns:
+# nowhere, on the row above or below in the same tensors, or in the edges
+_NO_EDGE, _WRAP, _GIVEN = 0, 1, 2
 
 
 def _neighbor_ok(block: Block, dy: int, dx: int, device) -> torch.Tensor:
@@ -55,6 +72,36 @@ def row_wrap(x: torch.Tensor, size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return left, right
 
 
+def _check(map2d: torch.Tensor, mask: torch.Tensor, size: int, block: Optional[Block], edges) -> Block:
+    """Refuses what neither version of the dilation takes; returns the
+    block (default: the whole map)."""
+    if map2d.dim() < 2 or mask.shape != map2d.shape:
+        raise ValueError(f"map and mask must be one (..., H, W) shape; got {tuple(map2d.shape)} and {tuple(mask.shape)}")
+    h, w = map2d.shape[-2:]
+    block = Block.whole(h, w) if block is None else block
+    if (block.h, block.w) != (h, w):
+        raise ValueError(f"the block is {block.h}x{block.w} cells but the maps are {h}x{w}")
+    tensors = [map2d, mask]
+    if edges is None:
+        if w != block.gw and (block.c0 == 0 or block.c0 + w == block.gw):
+            raise ValueError("a block at the map's left or right border that is not whole rows needs its edges")
+    else:
+        want = tuple(map2d.shape[:-2]) + (2, h, size)
+        if len(edges) != 2 or any(tuple(e.shape) != want for e in edges):
+            raise ValueError(f"edges must be two {want} tensors; got {[tuple(e.shape) for e in edges]}")
+        tensors += list(edges)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"the dilation takes float32 tensors; got {[t.dtype for t in tensors]}")
+    if any(t.device != map2d.device for t in tensors):
+        raise ValueError("map, mask and edges must lie on one device")
+    return block
+
+
+def _rows_contiguous(x: torch.Tensor) -> bool:
+    h, w = x.shape[-2:]
+    return (w == 1 or x.stride(-1) == 1) and (h == 1 or x.stride(-2) == w)
+
+
 def dilation_fill(
     map2d: torch.Tensor,
     mask: torch.Tensor,
@@ -64,7 +111,7 @@ def dilation_fill(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fill invalid cells from the neighbor minimizing dx+dy (ties: scan
     order, by the strict ``<``). Returns (filled map, updated mask). Maps
-    are (..., H, W); leading axes are a batch.
+    are (..., H, W) float32; leading axes are a batch.
 
     The neighbours are the reference's flat ones (offset ``W * dy + dx``),
     so at the map's left and right border they lie on the previous or next
@@ -74,13 +121,76 @@ def dilation_fill(
     block of whole rows finds its wrapped neighbours itself; a block at the
     map's left or right border that is not gives them as ``edges``: the
     (map, mask) pairs stacked on axis -3, (..., 2, H, size), of
-    :func:`row_wrap`'s left and right."""
+    :func:`row_wrap`'s left and right.
+
+    A CUDA tensor goes to the kernel (:func:`launch_dilation_fill`), a CPU
+    tensor to :func:`dilation_fill_reference`; both give the same bits."""
+    if map2d.device.type == "cuda":
+        return launch_dilation_fill(map2d, mask, size, block, edges)
+    if map2d.device.type != "cpu":
+        raise ValueError(f"dilation_fill runs on cuda or cpu tensors, not {map2d.device}")
+    return dilation_fill_reference(map2d, mask, size, block, edges)
+
+
+def launch_dilation_fill(
+    map2d: torch.Tensor,
+    mask: torch.Tensor,
+    size: int,
+    block: Optional[Block] = None,
+    edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dilation_fill` as one launch of ``csrc/dilation_fill.cu`` on
+    the current stream. Takes maps whose rows are contiguous, with one
+    stride between the maps of the batch (a channel of a (B, C, H, W)
+    stack does), contiguous edges and ``0 <= size <= W``; refuses anything
+    else, and any tensor not on a card, before the kernel is built."""
+    block = _check(map2d, mask, size, block, edges)
     h, w = map2d.shape[-2:]
-    block = Block.whole(h, w) if block is None else block
+    if not 0 <= size <= w:
+        raise ValueError(f"the kernel takes a size from 0 to the map's width {w}; got {size}")
+    if map2d.numel() == 0:
+        return map2d.clone(), mask.clone()
+    try:
+        m3, k3 = map2d.view(-1, h, w), mask.view(-1, h, w)
+    except RuntimeError:
+        m3 = k3 = None
+    if m3 is None or not (_rows_contiguous(m3) and _rows_contiguous(k3)):
+        raise ValueError("the dilation kernel needs contiguous rows and one stride between maps")
+    if edges is not None and not all(e.is_contiguous() for e in edges):
+        raise ValueError("the dilation kernel needs contiguous edges")
+    if map2d.device.type != "cuda":
+        raise ValueError(f"the dilation kernel runs on cuda tensors, not {map2d.device}")
+    if edges is None:
+        left = right = None
+        modes = (_WRAP, _WRAP) if w == block.gw else (_NO_EDGE, _NO_EDGE)
+    else:
+        left, right = (e.data_ptr() for e in edges)
+        modes = (_GIVEN if block.c0 == 0 else _NO_EDGE, _GIVEN if block.c0 + w == block.gw else _NO_EDGE)
+    out = torch.empty(m3.shape, dtype=torch.float32, device=map2d.device)
+    out_mask = torch.empty_like(out)
+    with torch.cuda.device(map2d.device):
+        KERNEL.launch(
+            m3.data_ptr(), k3.data_ptr(), left, right, out.data_ptr(), out_mask.data_ptr(),
+            m3.stride(0), k3.stride(0), m3.shape[0], h, w, size,
+            *(int(v) for v in (block.r0, block.c0, block.gh, block.gw)), *modes,
+            torch.cuda.current_stream(map2d.device).cuda_stream,
+        )
+    return out.view(map2d.shape), out_mask.view(map2d.shape)
+
+
+def dilation_fill_reference(
+    map2d: torch.Tensor,
+    mask: torch.Tensor,
+    size: int,
+    block: Optional[Block] = None,
+    edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`dilation_fill`: one shifted copy of
+    a padded grid per offset, which the tests hold to the JAX package."""
+    block = _check(map2d, mask, size, block, edges)
+    h, w = map2d.shape[-2:]
     x = torch.stack([map2d, mask], dim=-3)
     if edges is None:
-        if w != block.gw and (block.c0 == 0 or block.c0 + w == block.gw):
-            raise ValueError("a block at the map's left or right border that is not whole rows needs its edges")
         edges = row_wrap(x, size)
     left = edges[0] if block.c0 == 0 else torch.zeros_like(x[..., :size])
     right = edges[1] if block.c0 + w == block.gw else torch.zeros_like(x[..., :size])

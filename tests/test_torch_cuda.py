@@ -1,5 +1,5 @@
-"""The PyTorch port on a CUDA card: kernels K1 and K2 and the updates through
-them, the semantic fusions, the image path, post-processing (stencil
+"""The PyTorch port on a CUDA card: kernels K1 and K2, the dilation kernel and
+the updates through them, the semantic fusions, the image path, post-processing (stencil
 filters, plugins, polygon mask, grid-map filters), plane segmentation,
 the runtime service and the DINO ViT.
 
@@ -19,7 +19,8 @@ import torch
 import chip_smoke
 from elevation_mapping_cupy_torch import MapConfig, core
 from elevation_mapping_cupy_torch.mapper import ElevationMap
-from elevation_mapping_cupy_torch.ops import cuda_march, cuda_scatter, raycast, scatter
+from elevation_mapping_cupy_torch.ops import cuda_march, cuda_scatter, raycast, scatter, stencil
+from elevation_mapping_cupy_torch.ops.geometry import Block
 
 pytestmark = pytest.mark.cuda
 
@@ -116,6 +117,124 @@ def test_wrapper_refuses_non_contiguous(card):
             vals,
             8,
         )
+
+
+def _dilation_inputs(card, rng, b, h, w, masks):
+    """(heights, mask) as the update hands them to the dilation: channel 5
+    of a (b, 7, h, w) stack and the sum of channels 2 and 6 (0, 1 or 2).
+    ``masks``: every cell valid, none, or a random share with NaN heights."""
+    layers = rng.normal(0.0, 1.0, (b, 7, h, w)).astype(np.float32)
+    layers[:, 2] = {"valid": 1.0, "invalid": 0.0}.get(masks, rng.random((b, h, w)) < 0.3)
+    layers[:, 6] = 0.0 if masks != "random" else rng.random((b, h, w)) < 0.1
+    if masks == "random":
+        layers[:, 5][rng.random((b, h, w)) < 0.1] = np.nan
+    x = torch.from_numpy(layers).to(card)
+    return x[:, 5], x[:, 2] + x[:, 6]
+
+
+def _assert_dilation_equal(height, mask, size, block=None, edges=None):
+    """The kernel against its plain version on the same card tensors: one
+    launch, both outputs equal in bits (NaN heights included)."""
+    before = stencil.KERNEL.launches
+    got = stencil.dilation_fill(height, mask, size, block, edges)
+    torch.cuda.synchronize()
+    assert stencil.KERNEL.launches == before + 1
+    want = stencil.dilation_fill_reference(height, mask, size, block, edges)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == height.shape
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.uint32), w.cpu().numpy().view(np.uint32))
+    return got
+
+
+@pytest.mark.parametrize("masks", ["valid", "invalid", "random"])
+@pytest.mark.parametrize("hw", [(202, 202), (150, 230)])
+@pytest.mark.parametrize("b", [1, 8, 64])
+@pytest.mark.parametrize("size", [1, 2, 3, 10])
+def test_dilation_kernel_matches_plain_version(card, size, b, hw, masks):
+    """The dilation kernel bit for bit against its plain version: the
+    deployed (3), datagen (2) and initialize_map (10) sizes and 1, at B = 1,
+    8 and 64, on the deployed map and a non-square one."""
+    rng = np.random.default_rng(size * 1000 + b)
+    height, mask = _dilation_inputs(card, rng, b, *hw, masks)
+    _, out_mask = _assert_dilation_equal(height, mask, size)
+    if masks == "invalid":
+        assert not bool((out_mask > 0.5).any())
+
+
+@pytest.mark.parametrize("size", [15, 16])
+def test_dilation_kernel_on_both_sides_of_the_tiled_sizes(card, size):
+    """Up to size 15 the kernel scans a shared-memory halo, above it each
+    cell tests its own neighbours: the largest tiled size and the first
+    direct one."""
+    rng = np.random.default_rng(size)
+    height, mask = _dilation_inputs(card, rng, 2, 150, 230, "random")
+    sparse = torch.from_numpy(rng.random(mask.shape) < 0.1).to(card)
+    mask = torch.where(sparse, mask, 0.0)  # usable neighbours far apart: long scans
+    _assert_dilation_equal(height, mask, size)
+
+
+def _block_case(card, rng, kind, size, b=2):
+    """A block of a 40 x 37 map and what a process holding it passes the
+    dilation: whole rows (their wrapped neighbours found in the block, or
+    given as ``row_wrap``'s edges), a block at the left or the right
+    border with its edges, and one between them."""
+    gh, gw, r0, h = 40, 37, 10, 12
+    c0, w = {"rows": (0, gw), "rows_edges": (0, gw), "left": (0, 15), "right": (22, 15), "inner": (8, 15)}[kind]
+    height, mask = _dilation_inputs(card, rng, b, h, w, "random")
+    edges = None
+    if kind == "rows_edges":
+        edges = stencil.row_wrap(torch.stack([height, mask], dim=-3), size)
+    elif kind in ("left", "right"):
+        edges = tuple(
+            torch.from_numpy(np.stack([rng.normal(0.0, 1.0, (b, h, size)), rng.random((b, h, size)) < 0.3], 1)
+                             .astype(np.float32)).to(card)
+            for _ in range(2)
+        )
+    return height, mask, Block(r0, c0, h, w, gh, gw), edges
+
+
+@pytest.mark.parametrize("kind", ["rows", "rows_edges", "left", "right", "inner"])
+@pytest.mark.parametrize("size", [1, 3])
+def test_dilation_kernel_on_blocks_matches_plain_version(card, size, kind):
+    height, mask, block, edges = _block_case(card, np.random.default_rng(size), kind, size)
+    got = _assert_dilation_equal(height, mask, size, block, edges)
+    if kind == "rows_edges":  # the edges a block of whole rows would find itself
+        for g, w in zip(got, stencil.dilation_fill(height, mask, size, block)):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_dilation_kernel_takes_any_leading_axes(card):
+    """One (H, W) map, as initialize_map passes it, and (2, 3, H, W)."""
+    rng = np.random.default_rng(4)
+    height, mask = _dilation_inputs(card, rng, 6, 33, 41, "random")
+    _assert_dilation_equal(height[0], mask[0], 2)
+    _assert_dilation_equal(height.reshape(2, 3, 33, 41), mask.reshape(2, 3, 33, 41), 2)
+
+
+def test_dilation_kernel_launches_once_per_call_and_per_update(card):
+    """KERNEL.launches rises by one per call, and by one per core.dilation
+    span of an update on the card."""
+    import time
+
+    from elevation_mapping_cupy_torch import tracing
+
+    height, mask = _dilation_inputs(card, np.random.default_rng(5), 1, 202, 202, "random")
+    before = stencil.KERNEL.launches
+    for _ in range(3):
+        stencil.dilation_fill(height, mask, 3)
+    assert stencil.KERNEL.launches == before + 3
+    cfg = MapConfig(resolution=0.1, map_length=4.0, max_ray_length=1.5, max_points=8192, raycast_mode="polar")
+    em = ElevationMap(cfg)
+    rng = np.random.default_rng(6)
+    t0 = time.perf_counter_ns()
+    before = stencil.KERNEL.launches
+    for k in range(2):
+        R, t, pos = chip_smoke.robot_pose(4 * k)
+        em.move_to(pos, R)
+        em.input_pointcloud(chip_smoke.scene_cloud(rng, 6000, R, t, r_max=2.5), ["x", "y", "z"], R, t, 0.0, 0.0)
+    torch.cuda.synchronize()
+    spans = [s for s in tracing.spans(t0) if s.name == "core.dilation"]
+    assert stencil.KERNEL.launches - before == len(spans) == 2
 
 
 def test_update_on_card_matches_cpu(card):
