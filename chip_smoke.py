@@ -39,7 +39,15 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              step (B = 8 and 64, size 2 on the default map) and the default
              initialize_map (B = 1, size 10), each with its call's time, its
              device time, the plain version's and its bound (16 bytes a
-             cell).
+             cell). Then the polar evaluation kernel against its plain
+             version on the card (channels 5 and 6 and the copied ones bit
+             for bit, 1 and 2 within 1e-5 of max(1, |plain|), one launch a
+             call), on the arguments an update hands it after the map has
+             aged past the recency gate: the robot's update (B = 1, R 355,
+             with and without the min-slope pyramid) and datagen's step
+             (B = 8 and 64, R 72), each with its call's time, its device
+             time, the plain version's (in POLAR_EVAL_BYTES chunks) and
+             its bound (the cube read once, 72 bytes a cell).
 4. main    - ``ElevationMap(deployed config, device="cuda")`` with the
              shipped weights takes 20 updates of a seeded synthetic scene of
              131072 points while the robot moves (``move_to``); the polar
@@ -356,8 +364,10 @@ SPATIAL_WORLDS = {2: ((2,), ("x",), None), 4: ((2, 2), ("x", "y"), "y")}  # rows
 SPATIAL_TIMEOUT_S = 300
 SPATIAL_TOL = 1e-5
 SPATIAL_MOVE = {"exact1024": (0.5, -0.3, 0.1), "polar1024": (1.0, -0.6, 0.0)}
-SPATIAL_LAUNCHES = {"exact1024": {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1},
-                    "polar1024": {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1}}
+SPATIAL_LAUNCHES = {"exact1024": {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1,
+                                  "polar_evaluate": 0},
+                    "polar1024": {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1,
+                                  "polar_evaluate": 1}}
 EXAMPLE_WORLD = 8            # the sharded example's processes, all on cuda:0 over gloo
 # K1 launches of each example's run as it ships (K2 never runs: every
 # example resolves to the polar cleanup): per update, step or frame times
@@ -371,7 +381,8 @@ EXAMPLE_K1 = {
     "large_world_sharded": 3 * 12,       # per process: 3 per step on its padded block; 12 frames
 }
 # the dilation kernel's launches of each example's run: one per map update
-# or batched step (per process for the world), none per decomposition
+# or batched step (per process for the world), none per decomposition; every
+# example's update is polar, so the polar evaluation launches as often
 EXAMPLE_DILATION = {
     "plane_decomposition_demo": 0,
     "minimal_mapping": 6,
@@ -942,6 +953,117 @@ def phase_dilation(cfg) -> list:
     ]
 
 
+def polar_evaluation_inputs(cfg, b: int, n_points: int) -> tuple:
+    """The polar evaluation's arguments as an update hands them over, on
+    maps aged past the recency gate after two updates, so that cells can be
+    hit, lose validity and take upper bounds: b = 1 is the robot's map of
+    the smoke scene (poses 0 to 2, then 3), b > 1 datagen's batch of
+    ``make_batch_clouds`` terrains."""
+    from elevation_mapping_cupy_torch import core
+    from elevation_mapping_cupy_torch.mapper import ElevationMap
+    from elevation_mapping_cupy_torch.nn.traversability import default_weights
+    from elevation_mapping_cupy_torch.ops import raycast
+    from elevation_mapping_cupy_torch.parallel import batched_update, init_batch
+    from elevation_mapping_cupy_torch.runtime import datagen
+
+    calls = []
+    real = raycast.polar_evaluate
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    if b == 1:
+        em = ElevationMap(cfg, device="cuda")
+        rng = np.random.default_rng(21)
+        for k in range(4):
+            if k == 3:
+                for _ in range(7):
+                    em.state = core.update_time(em.state, cfg)
+                raycast.polar_evaluate = spy
+            R, t, pos = robot_pose(k)
+            em.move_to(pos, R)
+            try:
+                em.input_pointcloud(scene_cloud(rng, n_points, R, t), ["x", "y", "z"], R, t, 0.0, 0.0)
+            finally:
+                raycast.polar_evaluate = real
+    else:
+        cfg = cfg.replace(max_points=n_points)
+        mask = torch.ones((b, n_points), dtype=torch.bool, device="cuda")
+        R = torch.eye(3, device="cuda").expand(b, 3, 3).contiguous()
+        z = torch.zeros(b, device="cuda")
+        states = init_batch(cfg, b, "cuda")
+        weights = default_weights().to("cuda")
+        for k in range(3):
+            if k == 2:
+                for _ in range(7):
+                    states = core.update_time(states, cfg)
+                raycast.polar_evaluate = spy
+            pts, t, _ = datagen.make_batch_clouds(datagen.make_generator(k, "cuda"), b, cfg.cell_n, cfg.resolution,
+                                                  n_points)
+            try:
+                states = batched_update(states, pts, mask, R, t, z, z, weights, cfg)
+            finally:
+                raycast.polar_evaluate = real
+    if len(calls) != 1:
+        raise AssertionError(f"polar evaluation inputs: {len(calls)} evaluations in one update")
+    return calls[0]
+
+
+def check_polar_case(label: str, args) -> dict:
+    """The polar evaluation kernel against its plain version on the card:
+    channels 5 and 6 and the copied ones bit for bit, 1 and 2 within 1e-5
+    of max(1, |plain|), one launch a call; then its time beside the plain
+    version's and its bound (each map's prefix cube and pyramid read once,
+    72 bytes a cell)."""
+    from elevation_mapping_cupy_torch.ops import raycast
+
+    layers, pyramid, (A, R, S, levels, block) = args[0], args[6], args[7]
+    b = layers.shape[0]
+    before = raycast.KERNEL.launches
+    got = raycast.polar_evaluate(*args)
+    torch.cuda.synchronize()
+    if raycast.KERNEL.launches != before + 1:
+        raise AssertionError(f"polar evaluation {label}: {raycast.KERNEL.launches - before} launches in one call")
+    want = raycast._polar_evaluate_in_chunks(*args)
+    for c in (0, 3, 4, 5, 6):
+        if not torch.equal(got[:, c].contiguous().view(torch.int32), want[:, c].contiguous().view(torch.int32)):
+            raise AssertionError(f"polar evaluation {label}: channel {c} differs from the plain version")
+    rel = max(float(((got[:, c].double() - want[:, c].double()).abs()
+                     / want[:, c].double().abs().clamp(min=1.0)).max()) for c in (1, 2))
+    if not rel <= 1e-5:
+        raise AssertionError(f"polar evaluation {label}: channels 1 and 2 {rel} off the plain version")
+    cube = A * R * 2 * S + (0 if pyramid is None else (levels + 1) * A * R * S)
+    res = {"case": label, "B": b, "A": A, "R": R, "S": S, "pyramid": pyramid is not None,
+           "cells_changed": int((got[:, 2] != layers[:, 2]).sum()), "max_rel_err": rel,
+           "bound_ms": b * (4 * cube + 72 * block.h * block.w) / HBM_BYTES_PER_S * 1e3}
+    iters = 20
+    res["kernel_ms"] = _events_ms(lambda: raycast.polar_evaluate(*args), iters)
+    res["device_ms"], res["device_ops_ms"] = _device_ms(lambda: raycast.polar_evaluate(*args), iters)
+    res["device_ms_per_map"] = res["device_ms"] / b
+    res["share_of_bound"] = res["bound_ms"] / res["device_ms"]
+    res["plain_ms"] = _events_ms(lambda: raycast._polar_evaluate_in_chunks(*args), 3, warmup=1)
+    res["plain_ms_per_map"] = res["plain_ms"] / b
+    res["library_ms"] = None  # no PyTorch call computes the evaluation
+    log("polar evaluation check: " + json.dumps(res))
+    return res
+
+
+def phase_polar(cfg) -> list:
+    """The polar evaluation kernel at the robot's shapes (B = 1, R 355) and
+    datagen's (B = 8 and 64, R 72), each as an update hands them over."""
+    from elevation_mapping_cupy_torch import MapConfig
+
+    default = MapConfig()
+    return [
+        check_polar_case("robot update", polar_evaluation_inputs(cfg, 1, MAIN_POINTS)),
+        check_polar_case("datagen step B=8", polar_evaluation_inputs(default, 8, BATCH_POINTS)),
+        check_polar_case("datagen step B=64", polar_evaluation_inputs(default, 64, BATCH_POINTS)),
+        check_polar_case("robot update, pyramid",
+                         polar_evaluation_inputs(cfg.replace(raycast_slope_from_bins=False), 1, MAIN_POINTS)),
+    ]
+
+
 def _compare_layers(tag: str, got: dict, want: dict, packed=(), min_share: float = CMP_MIN_SHARE, where=None,
                     sums=()) -> dict:
     """Share of cells on which the card's layers agree with the CPU run's:
@@ -1023,7 +1145,8 @@ def phase_main(cfg, kernel_regs):
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     peak = torch.cuda.max_memory_allocated()
     check_launches("main path (polar)", launches, N_UPDATES,
-                   {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1})
+                   {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1,
+                    "polar_evaluate": 1})
     mapped_state = em.state
     out = em.get_layers(layers)
     if not all(v.shape == (cfg.cell_n - 2, cfg.cell_n - 2) for v in out.values()):
@@ -1695,7 +1818,8 @@ def drive_example(name: str, kernel_regs, checked: set, fn) -> tuple:
         wall = time.perf_counter() - t0
     launches = {kname: kern.launches for kname, kern in kernel_regs.items()}
     check_launches(f"example {name}", launches, 1, {"scatter_add_streams": EXAMPLE_K1[name], "exact_march": 0,
-                                                    "dilation_fill": EXAMPLE_DILATION[name]})
+                                                    "dilation_fill": EXAMPLE_DILATION[name],
+                                                    "polar_evaluate": EXAMPLE_DILATION[name]})
     check_shapes(f"example {name}", shapes, checked)
     return result, launches, wall
 
@@ -1854,7 +1978,8 @@ def phase_examples(kernel_regs, checked: set, smi: str) -> dict:
         tag = f"example large_world_sharded rank {rank}"
         check_launches(tag, per_rank[-1]["launches"], 1,
                        {"scatter_add_streams": EXAMPLE_K1["large_world_sharded"], "exact_march": 0,
-                        "dilation_fill": EXAMPLE_DILATION["large_world_sharded"]})
+                        "dilation_fill": EXAMPLE_DILATION["large_world_sharded"],
+                        "polar_evaluate": EXAMPLE_DILATION["large_world_sharded"]})
         check_shapes(tag, {tuple(x) for x in per_rank[-1]["k1_shapes"]}, checked)
     text = example_output(lw, r)
     expect_output("large_world_sharded", text, r"512x512 cells .* over 8 shards", r"building A top: 1\.2",
@@ -1933,7 +2058,8 @@ def phase_exact(cfg, kernel_regs):
             cmp_stats.append(stats)
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     check_launches("exact path", launches, EXACT_UPDATES,
-                   {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1})
+                   {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1,
+                    "polar_evaluate": 0})
     main_routes = list(routes)
     lat_1m = [step(EXACT_UPDATES + k, 1_000_000)[0] for k in range(6)]
     prof = profile_updates(em, rng, pose=EXACT_UPDATES + 5)
@@ -1977,7 +2103,8 @@ def phase_replay(cfg, kernel_regs):
         torch.cuda.synchronize()
         launches = {name: kern.launches for name, kern in kernel_regs.items()}
         want = replay(path, cfg, snapshot_layers=LAYERS, raycast_mode="exact", device="cpu")
-    check_launches("replay", launches, 3, {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1})
+    check_launches("replay", launches, 3, {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1,
+                                           "polar_evaluate": 0})
     stats = [_compare_layers(f"replay frame {i}", g, c) for i, (g, c) in enumerate(zip(got, want))]
     log("replay: " + json.dumps({"frames": len(got), "launches": launches, "cpu_compare": stats}))
 
@@ -2048,7 +2175,8 @@ def drive_semantic(tag, cfg, kernel_regs, make_cloud, channels, n_updates, k1_pe
             ))
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     check_launches(tag, launches, n_updates,
-                   {"scatter_add_streams": k1_per_update, "exact_march": 0, "dilation_fill": 1})
+                   {"scatter_add_streams": k1_per_update, "exact_march": 0, "dilation_fill": 1,
+                    "polar_evaluate": 1})
     prof = profile_updates(em, rng, n_updates=3, pose=1 + n_updates, make_cloud=make_cloud, channels=names)
     ms = np.array(lat) * 1e3
     med = float(np.median(ms))
@@ -2191,7 +2319,8 @@ def phase_image(em, kernel_regs):
             lat.append(time.perf_counter() - t0)
         launches = {name: kern.launches for name, kern in kernel_regs.items()}
         check_launches(f"image ({mode})", launches, calls,
-                       {"scatter_add_streams": 0, "exact_march": 0, "dilation_fill": 0})
+                       {"scatter_add_streams": 0, "exact_march": 0, "dilation_fill": 0,
+                        "polar_evaluate": 0})
         t0 = time.perf_counter()
         for _ in range(calls):
             cpu.input_image(img, channels, R, t, K, D)
@@ -2298,7 +2427,8 @@ def phase_plugins(em, kernel_regs):
     torch.cuda.synchronize()
     update_launches = {name: kern.launches for name, kern in kernel_regs.items()}
     check_launches("plugins (updates)", update_launches, PLUGIN_UPDATES,
-                   {"scatter_add_streams": 5, "exact_march": 0, "dilation_fill": 1})
+                   {"scatter_add_streams": 5, "exact_march": 0, "dilation_fill": 1,
+                    "polar_evaluate": 1})
 
     cpu = ElevationMap(em.cfg, device="cpu")
     cpu.state = state_from_numpy(state_to_numpy(em.state), "cpu")
@@ -2381,7 +2511,8 @@ def phase_plugins(em, kernel_regs):
     # initialize_map dilates twice, at dilation_size_initialize
     check_launches("plugins (exports, polygon query, initialize_map)", export_launches, 1,
                    {"scatter_add_streams": 0, "exact_march": 0,
-                    "dilation_fill": 2 * init_calls if em.cfg.dilation_size_initialize > 0 else 0})
+                    "dilation_fill": 2 * init_calls if em.cfg.dilation_size_initialize > 0 else 0,
+                    "polar_evaluate": 0})
     res["launches_updates"], res["launches_exports"] = update_launches, export_launches
     log("plugins: " + json.dumps(res))
     return res
@@ -2443,7 +2574,8 @@ def phase_planeseg(kernel_regs, checked: set):
         wall.append((time.perf_counter() - t0) * 1e3)
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     check_launches("planeseg", launches, PLANESEG_CALLS,
-                   {"scatter_add_streams": 2, "exact_march": 0, "dilation_fill": 0})
+                   {"scatter_add_streams": 2, "exact_march": 0, "dilation_fill": 0,
+                    "polar_evaluate": 0})
     totals = np.asarray(pipe._stats["total"]) * 1e3
     report = pipe.timing_report()
     stages = {k: float(np.mean(v) * 1e3) for k, v in pipe._stats.items()}
@@ -2502,7 +2634,8 @@ def phase_planeseg(kernel_regs, checked: set):
         batch_ms.append((time.perf_counter() - t0) * 1e3)
     batch_launches = {name: kern.launches for name, kern in kernel_regs.items()}
     check_launches("planeseg update_batch", batch_launches, PLANESEG_BATCH_CALLS,
-                   {"scatter_add_streams": 2, "exact_march": 0, "dilation_fill": 0})
+                   {"scatter_add_streams": 2, "exact_march": 0, "dilation_fill": 0,
+                    "polar_evaluate": 0})
     for b in (0, PLANESEG_BATCH - 1):
         alone = pipe.update(hb[b])
         if not np.array_equal(batch[b].labels, alone.labels):
@@ -2548,7 +2681,8 @@ def phase_profile(kernel_regs, checked: set):
     # its warm-up update and PROFILE_ITERS timed ones: geometry 3, colour 1,
     # class_bayesian 1
     check_launches("profile", launches, PROFILE_ITERS + 1,
-                   {"scatter_add_streams": 5, "exact_march": 0, "dilation_fill": 1})
+                   {"scatter_add_streams": 5, "exact_march": 0, "dilation_fill": 1,
+                    "polar_evaluate": 1})
     check_shapes("profile", shapes, checked)
 
     # one update of the profile's map on the card and on the CPU port from
@@ -2641,7 +2775,8 @@ def drive_batch(b: int, cfg, weights, kernel_regs, checked: set) -> tuple:
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     peak = torch.cuda.max_memory_allocated()
     check_launches(f"batched B={b}", launches, BATCH_STEPS,
-                   {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1})
+                   {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1,
+                    "polar_evaluate": 1})
     check_shapes(f"batched B={b}", shapes, checked)
     valid = states.layers[:, 2] > 0.5
     share = float(valid.float().mean())
@@ -3011,7 +3146,8 @@ def drive_sensor_semantic(kernel_regs, checked: set) -> dict:
             clouds.append((cloud, names, R, cam))
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     check_launches("sensor (semantic)", launches, SENSOR_FRAMES,
-                   {"scatter_add_streams": 5, "exact_march": 0, "dilation_fill": 1})
+                   {"scatter_add_streams": 5, "exact_march": 0, "dilation_fill": 1,
+                    "polar_evaluate": 1})
     check_shapes("sensor (semantic)", shapes, checked)
     if names != ["x", "y", "z", "rgb", *SENSOR_CHANNELS] or not np.isfinite(cloud).all():
         raise AssertionError(f"sensor: cloud columns {names} or non-finite values")
@@ -3060,7 +3196,8 @@ def phase_service(kernel_regs, checked: set):
     launches = {name: kern.launches for name, kern in kernel_regs.items()}
     peak = torch.cuda.max_memory_allocated()
     check_launches("service", launches, SERVICE_FRAMES,
-                   {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1})
+                   {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1,
+                    "polar_evaluate": 1})
     check_shapes("service", shapes, checked)
 
     image = service_image_frame(svc)
@@ -3074,7 +3211,8 @@ def phase_service(kernel_regs, checked: set):
     image_ms = (time.perf_counter() - t0) * 1e3
     image_launches = {name: kern.launches for name, kern in kernel_regs.items()}
     check_launches("service (image)", image_launches, 1,
-                   {"scatter_add_streams": 0, "exact_march": 0, "dilation_fill": 0})
+                   {"scatter_add_streams": 0, "exact_march": 0, "dilation_fill": 0,
+                    "polar_evaluate": 0})
     queries = service_queries(svc)
     query_ms = _latency_ms(lambda: service_queries(svc), calls=5)
 
@@ -3255,7 +3393,7 @@ SENSOR_CASES = ("sensor_count", "sensor_fusion", "sensor_cube", "sensor_features
 
 
 def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path_launches: dict,
-                 dilation_cases: list) -> dict:
+                 dilation_cases: list, polar_cases: list) -> dict:
     """One entry per kernel. K1's numbers are those of one update's three
     launches at the main path's cloud size (error counting, fusion, cube),
     summed and, under ``cases``, each on its own together with the semantic
@@ -3264,8 +3402,8 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path
     launches on the polar main path; its ``max_abs_err`` is the largest of
     every timed case. K2's are those
     of the gated march of n_main rays (the router's first choice) and its
-    launches on the exact path. The dilation's are those of the robot's
-    update, with every case under ``cases``. ``launches_by_path`` holds every driven
+    launches on the exact path. The dilation's and the polar evaluation's
+    are those of the robot's update, with every case under ``cases``. ``launches_by_path`` holds every driven
     path's count, each read after a run that began with the counts at 0.
     ``ms`` is the call as its caller pays for it, ``device_ms`` the device's
     own time."""
@@ -3342,6 +3480,28 @@ def kernels_line(cases, launches, march_cases, exact_launches, n_main: int, path
                     for c in dilation_cases
                 ],
             },
+            {
+                "name": "polar_evaluate",
+                "route": "cuda",
+                "source": "elevation_mapping_cupy_torch/csrc/polar_evaluate.cu",
+                "replaces": None,
+                "function": "ops/raycast.py::_polar_evaluate",
+                "checked": True,
+                "launches": launches["polar_evaluate"],
+                "launches_by_path": by_path("polar_evaluate"),
+                "max_abs_err": max(c["max_rel_err"] for c in polar_cases),
+                "ms": polar_cases[0]["kernel_ms"],
+                "device_ms": polar_cases[0]["device_ms"],
+                "plain_ms": polar_cases[0]["plain_ms"],
+                "bound_ms": polar_cases[0]["bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": None,
+                "cases": [
+                    {k: c[k] for k in ("case", "B", "R", "S", "pyramid", "kernel_ms", "device_ms", "device_ms_per_map",
+                                       "bound_ms", "plain_ms", "plain_ms_per_map")}
+                    for c in polar_cases
+                ],
+            },
         ]
     }
 
@@ -3374,6 +3534,7 @@ def main(argv=None) -> int:
     cfg = deployed_config()
     cases = timed("kernels", phase_kernels, cfg)
     dilation_cases = timed("kernels (dilation)", phase_dilation, cfg)
+    polar_cases = timed("kernels (polar evaluation)", phase_polar, cfg)
     main_res, launches, mapped_state = timed("main", phase_main, cfg, regs)
     march_cases, fresh_cases, block_cases = timed("march", phase_march, cfg, mapped_state)
     exact_res, exact_launches = timed("exact", phase_exact, cfg, regs)
@@ -3403,7 +3564,8 @@ def main(argv=None) -> int:
         **{f"spatial_{k}": v for k, v in spatial_res["launches"].items()},
         **{f"example_{k}": v for k, v in examples_res["launches"].items()},
     }
-    line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS, path_launches, dilation_cases)
+    line = kernels_line(cases, launches, march_cases, exact_launches, MAIN_POINTS, path_launches, dilation_cases,
+                        polar_cases)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({
@@ -3412,7 +3574,7 @@ def main(argv=None) -> int:
                 "plugins": plugin_res, "planeseg": planeseg_res, "batched": batched_res,
                 "profile": {"stages": profile_table, "launches": profile_launches, "cpu_compare": profile_cmp},
                 "service": service_res, "dino": dino_res, "spatial": spatial_res, "examples": examples_res,
-                "scatter_cases": list(cases.values()), "dilation_cases": dilation_cases,
+                "scatter_cases": list(cases.values()), "dilation_cases": dilation_cases, "polar_cases": polar_cases,
                 "march_cases": list(march_cases.values()) + list(fresh_cases.values()),
                 "march_block_cases": block_cases,
             }, f, indent=1)

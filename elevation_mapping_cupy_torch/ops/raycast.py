@@ -8,7 +8,9 @@ The three exact implementations are one kernel here, K2
 (``ops/cuda_march.py``): ``scan`` and ``flat`` are the same launch without a
 gate (every ray's steps end where the endpoint test starts to reject every
 sample, which the JAX scan walks to no effect), ``gated`` has the segment
-gate.
+gate. On the card the polar cleanup's per-cell evaluation is a kernel too,
+``csrc/polar_evaluate.cu`` (:func:`polar_evaluate`, ``KERNEL``), with
+``_polar_evaluate`` as its plain version.
 
 Race resolutions R1 (snapshot reads) and R3 (min-height upper-bound write)
 per tests/golden/reference_numpy.py.
@@ -21,6 +23,8 @@ march's segment counts over the processes.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Callable, Dict, Optional
 
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 
 from .. import tracing
 from ..config import MapConfig
+from ..kernels import CudaKernel
 from ..state import stack_tensors
 from . import cuda_march, scatter
 from .geometry import Block, PointAssociation, true_div
@@ -37,6 +42,9 @@ __all__ = [
     "visibility_cleanup",
     "visibility_cleanup_exact",
     "visibility_cleanup_polar",
+    "polar_evaluate",
+    "launch_polar_evaluate",
+    "KERNEL",
     "resolve_raycast_mode",
     "resolve_exact_impl",
     "exact_precompute",
@@ -355,12 +363,15 @@ def visibility_cleanup_polar(
     radius >= r", an azimuth prefix sum (and ring min-pyramid) makes the
     azimuth axis range-queryable, and each map cell answers its penetration
     query with a few row gathers plus a reduction over the S elevation
-    buckets. The two cube scatter-adds are one 2-stream launch of kernel K1.
+    buckets. The two cube scatter-adds are one 2-stream launch of kernel K1;
+    on the card the per-cell evaluation is one launch of
+    ``csrc/polar_evaluate.cu`` (:func:`polar_evaluate`).
 
     A batch of maps (leading axis on every argument) bins all its rays in
-    that one launch, each map into its own cube. The per-cell evaluation's
-    (cells x S) tensors run over at most ``POLAR_EVAL_BYTES`` of them at a
-    time: maps beyond that share of the batch are evaluated in later chunks.
+    that one launch, each map into its own cube, and the kernel evaluates
+    every map in one launch too. On the CPU the evaluation's (cells x S)
+    tensors run over at most ``POLAR_EVAL_BYTES`` of them at a time: maps
+    beyond that share of the batch are evaluated in later chunks.
 
     On a ``block`` the cube is built from every ray, as on the whole map,
     and only the block's cells are evaluated, each at its global centre.
@@ -428,32 +439,150 @@ def visibility_cleanup_polar(
             pyramid = torch.stack(levels, dim=1).reshape(nb, (n_levels + 1) * A * R, S)  # (B, L+1, A, R, S)
 
     with tracing.span("raycast.polar_evaluate", stream=on_card):
-        per_map = block.h * block.w * S * layers.element_size()
-        chunk = max(1, min(nb, POLAR_EVAL_BYTES // per_map))
-        geo = (A, R, S, n_levels, block)
-        out = torch.cat([
-            _polar_evaluate(
-                layers[b0:b0 + chunk], normal[b0:b0 + chunk], inlier_cnt[b0:b0 + chunk], t[b0:b0 + chunk],
-                pref[b0:b0 + chunk].reshape(-1, A * R, 2 * S), total[b0:b0 + chunk],
-                None if pyramid is None else pyramid[b0:b0 + chunk], geo, cfg,
-            )
-            for b0 in range(0, nb, chunk)
-        ]) if chunk < nb else _polar_evaluate(
-            layers, normal, inlier_cnt, t, pref.reshape(nb, A * R, 2 * S), total, pyramid, geo, cfg
+        out = polar_evaluate(
+            layers, normal, inlier_cnt, t, pref.reshape(nb, A * R, 2 * S), total, pyramid,
+            (A, R, S, n_levels, block), cfg,
         )
     return out[0] if single else out
 
 
-# bytes of one (maps x cells x S) float32 tensor of the polar cleanup's
-# per-cell evaluation: a batch larger than this evaluates in chunks of maps
+# bytes of one (maps x cells x S) float32 tensor of the plain per-cell
+# evaluation: on the CPU a batch larger than this evaluates in chunks of maps
 POLAR_EVAL_BYTES = 1 << 29
+
+KERNEL = CudaKernel(
+    "polar_evaluate.cu",
+    "polar_evaluate",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2 + [ctypes.c_int32] * 10
+    + [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p],
+)
+
+
+def polar_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo, cfg) -> torch.Tensor:
+    """The per-cell half of :func:`visibility_cleanup_polar` for a batch
+    of maps (B, 7, h, w): each cell's azimuth-window query of the prefix
+    cube ``pref_flat`` (B, A*R, 2S) and its row of ``total`` (B, R, 2S), of
+    the min-slope ``pyramid`` (B, (L+1)*A*R, S) if there is one, the
+    penetration test over the S buckets, and the layer updates. ``geo`` is
+    (A, R, S, L, block).
+
+    A CUDA tensor goes to the kernel (:func:`launch_polar_evaluate`), one
+    launch for the whole batch; a CPU tensor to :func:`_polar_evaluate`, in
+    chunks of at most ``POLAR_EVAL_BYTES`` of (maps x cells x S)."""
+    if layers.device.type == "cuda":
+        return launch_polar_evaluate(
+            layers.contiguous(), normal.contiguous(), inlier_cnt, t.contiguous(), pref_flat, total, pyramid, geo, cfg
+        )
+    if layers.device.type != "cpu":
+        raise ValueError(f"the polar evaluation runs on cuda or cpu tensors, not {layers.device}")
+    return _polar_evaluate_in_chunks(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo, cfg)
+
+
+def _polar_evaluate_in_chunks(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo, cfg) -> torch.Tensor:
+    """:func:`_polar_evaluate` over at most ``POLAR_EVAL_BYTES`` of (maps x
+    cells x S) at a time, on any device (the card's tests and smoke run hold
+    the kernel to it there)."""
+    nb = layers.shape[0]
+    block = geo[4]
+    chunk = max(1, min(nb, POLAR_EVAL_BYTES // max(1, block.h * block.w * geo[2] * layers.element_size())))
+    if chunk >= nb:
+        return _polar_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo, cfg)
+    return torch.cat([
+        _polar_evaluate(
+            layers[b0:b0 + chunk], normal[b0:b0 + chunk], inlier_cnt[b0:b0 + chunk], t[b0:b0 + chunk],
+            pref_flat[b0:b0 + chunk], total[b0:b0 + chunk],
+            None if pyramid is None else pyramid[b0:b0 + chunk], geo, cfg,
+        )
+        for b0 in range(0, nb, chunk)
+    ])
+
+
+def _check_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo, cfg) -> None:
+    """Refuses shapes that neither version of the evaluation takes."""
+    A, R, S, n_levels, block = geo
+    if layers.dim() != 4 or layers.shape[1] != 7:
+        raise ValueError(f"the layers must be (B, 7, h, w); got {tuple(layers.shape)}")
+    nb, _, h, w = layers.shape
+    want = {"normal": (normal, (nb, 3, h, w)), "inlier_cnt": (inlier_cnt, (nb, h, w)), "t": (t, (nb, 3)),
+            "pref_flat": (pref_flat, (nb, A * R, 2 * S)), "total": (total, (nb, R, 2 * S))}
+    if pyramid is not None:
+        want["pyramid"] = (pyramid, (nb, (n_levels + 1) * A * R, S))
+    for name, (x, shape) in want.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape} for these layers and cube; got {tuple(x.shape)}")
+    n = cfg.cell_n
+    if ((block.h, block.w) != (h, w) or (block.gh, block.gw) != (n, n) or block.r0 < 0 or block.c0 < 0
+            or block.r0 + h > n or block.c0 + w > n):
+        raise ValueError(f"{block} does not place {h}x{w} layers in the {n}x{n} map")
+
+
+def _maps_contiguous(x: torch.Tensor) -> bool:
+    """Whether each map (the leading axis) of ``x`` is contiguous."""
+    return x[0].is_contiguous() if x.shape[0] else True
+
+
+def launch_polar_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo, cfg) -> torch.Tensor:
+    """:func:`polar_evaluate` as one launch of ``csrc/polar_evaluate.cu`` on
+    the current stream. Takes float32 tensors: contiguous layers, normals,
+    t, cube and pyramid, and ``inlier_cnt`` and ``total`` whose maps are
+    each contiguous; refuses anything else, and any tensor not on a card,
+    before the kernel is built."""
+    A, R, S, n_levels, block = geo
+    _check_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo, cfg)
+    tensors = [layers, normal, inlier_cnt, t, pref_flat, total] + ([] if pyramid is None else [pyramid])
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise TypeError(f"the polar evaluation kernel takes float32 tensors; got {[x.dtype for x in tensors]}")
+    whole = [layers, normal, t, pref_flat] + ([] if pyramid is None else [pyramid])
+    if not all(x.is_contiguous() for x in whole) or not all(_maps_contiguous(x) for x in (inlier_cnt, total)):
+        raise ValueError("the polar evaluation kernel needs contiguous tensors (inlier_cnt and total: each map)")
+    if any(x.device != layers.device for x in tensors):
+        raise ValueError("the layers, normals, counts, cube and pyramid must lie on one device")
+    if layers.device.type != "cuda":
+        raise ValueError(f"the polar evaluation kernel runs on cuda tensors, not {layers.device}")
+    out = torch.empty_like(layers)
+    if out.numel() == 0:
+        return out
+    table = _bucket_table(S, cfg.ray_step, cfg.resolution, torch.float32, layers.device)
+    consts = _kernel_constants(cfg, A)
+    with torch.cuda.device(layers.device):
+        KERNEL.launch(
+            layers.data_ptr(), normal.data_ptr(), inlier_cnt.data_ptr(), t.data_ptr(), pref_flat.data_ptr(),
+            total.data_ptr(), None if pyramid is None else pyramid.data_ptr(), table.data_ptr(), out.data_ptr(),
+            inlier_cnt.stride(0), total.stride(0), layers.shape[0], block.h, block.w, block.r0, block.c0,
+            cfg.cell_n, A, R, S, n_levels, (ctypes.c_float * len(consts))(*consts), len(consts),
+            torch.cuda.current_stream(layers.device).cuda_stream,
+        )
+    return out
+
+
+def _kernel_constants(cfg: MapConfig, A: int) -> tuple:
+    """The Python scalars that :func:`_polar_evaluate` hands to torch ops,
+    which cast them to float32, in the order of the kernel's ``Const``."""
+    step = cfg.ray_step
+    return (
+        0.5 * cfg.cell_n, cfg.resolution, math.pi, A / (2.0 * math.pi), step, cfg.max_ray_length, step * 0.5,
+        1e-6, 1e-9, cfg.resolution**2, 0.01, 0.05, cfg.cleanup_cos_thresh, cfg.wall_num_thresh,
+        cfg.cleanup_step * cfg.max_ray_length, cfg.outlier_variance,
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def _bucket_table(S: int, step: float, resolution: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(5, S) per elevation bucket, from the config alone: tan, cos and sin
+    of the bucket's centre angle (float32 angles, as the JAX package
+    computes them), the xy sample spacing ``delta`` and the saturated
+    acceptance width ``res^2 / delta``."""
+    phi_k = (torch.arange(S, dtype=dtype, device=device) + 0.5) * (math.pi / S) - math.pi / 2
+    cos_pk = torch.cos(phi_k)
+    delta_k = step * cos_pk
+    w_sat = (resolution**2) / torch.clamp(delta_k, min=1e-9)
+    return torch.stack([torch.tan(phi_k), cos_pk, torch.sin(phi_k), delta_k, w_sat])
 
 
 def _polar_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo, cfg) -> torch.Tensor:
-    """The per-cell half of :func:`visibility_cleanup_polar` for a batch
-    of maps: each cell's azimuth-window query of the prefix cube
-    ``pref_flat`` (B, A*R, 2S) and its row of ``total`` (B, R, 2S), the
-    penetration test over the S buckets, and the layer updates."""
+    """Plain PyTorch version of :func:`polar_evaluate`, which the tests hold
+    to the JAX package and the kernel to on the card."""
+    _check_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo, cfg)
     A, R, S, n_levels, block = geo
     n = cfg.cell_n
     step = cfg.ray_step
@@ -516,18 +645,13 @@ def _polar_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, ge
 
     inside = (row_i > 0) & (row_i < n - 1) & (col_i > 0) & (col_i < n - 1)
 
-    # bucket-center angles in float32, as the JAX package computes them
-    phi_k = (torch.arange(S, dtype=dt, device=dev) + 0.5) * (math.pi / S) - math.pi / 2
-    tan_k = torch.tan(phi_k)
-    cos_pk = torch.cos(phi_k)
-    sin_pk = torch.sin(phi_k)
+    tan_k, cos_pk, sin_pk, delta_k, w_sat = _bucket_table(S, cfg.ray_step, cfg.resolution, dt, dev)
 
     safe_r = torch.clamp(r_c, min=1e-6)
 
     # the exact march evaluates each cell at its entry sample, not its
     # center: expected evaluation radius is r_c minus half the mean chord
-    # (res^2 / band) plus half the xy sample spacing
-    delta_k = cfg.ray_step * cos_pk                       # (S,) xy spacing
+    # (res^2 / band) plus half the xy sample spacing delta_k
     mean_chord = cfg.resolution**2 / torch.clamp(band, min=1e-9)
     r_eval = torch.clamp(
         safe_r[..., None] - 0.5 * mean_chord[..., None] + 0.5 * delta_k, min=1e-6
@@ -544,7 +668,6 @@ def _polar_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, ge
     # integrated over the chord profile of a square cell
     mx = torch.maximum(abs_c, abs_s)
     w_lin = band[..., None] - delta_k * (abs_c * abs_s)[..., None]
-    w_sat = (cfg.resolution**2) / torch.clamp(delta_k, min=1e-9)
     use_sat = delta_k >= (cfg.resolution / torch.clamp(mx, min=1e-9))[..., None]
     w_eff = torch.where(use_sat, w_sat, w_lin)
     accept_k = torch.clamp(w_eff / torch.clamp(band[..., None], min=1e-9), 0.0, 1.0)

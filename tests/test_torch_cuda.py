@@ -237,6 +237,184 @@ def test_dilation_kernel_launches_once_per_call_and_per_update(card):
     assert stencil.KERNEL.launches - before == len(spans) == 2
 
 
+# ---------------------------------------------------------------------------
+# the polar evaluation kernel (csrc/polar_evaluate.cu)
+# ---------------------------------------------------------------------------
+
+_POLAR_EVALUATE = raycast.polar_evaluate
+
+
+def _capture_polar(monkeypatch) -> list:
+    """Records the arguments of every ``raycast.polar_evaluate`` call; each
+    call goes on to the kernel."""
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return _POLAR_EVALUATE(*args)
+
+    monkeypatch.setattr(raycast, "polar_evaluate", spy)
+    return calls
+
+
+def _robot_evaluation(monkeypatch, cfg, n_points=131072):
+    """The evaluation's arguments in one robot update on the card: a map
+    of a few updates of the smoke scene, aged past the recency gate, so that
+    cells can be hit, lose validity and take upper bounds."""
+    em = ElevationMap(cfg.replace(raycast_mode="polar"))
+    em.state = _aged_map(cfg, n_points)
+    calls = _capture_polar(monkeypatch)
+    R, t, pos = chip_smoke.robot_pose(3)
+    em.move_to(pos, R)
+    em.input_pointcloud(chip_smoke.scene_cloud(np.random.default_rng(9), n_points, R, t), ["x", "y", "z"], R, t,
+                        0.0, 0.0)
+    assert len(calls) == 1
+    return calls[0]
+
+
+def _batch_evaluation(monkeypatch, cfg, b, card, n_points=100_000):
+    """The evaluation's arguments in one batched datagen step of ``b`` maps
+    (clouds from make_batch_clouds) after two steps and aging."""
+    from elevation_mapping_cupy_torch.nn.traversability import DEFAULT_WEIGHT_FILE, load_weights_npz
+    from elevation_mapping_cupy_torch.parallel import batched_update, init_batch
+    from elevation_mapping_cupy_torch.runtime import datagen
+
+    cfg = cfg.replace(max_points=n_points)
+    w = load_weights_npz(DEFAULT_WEIGHT_FILE).to(card)
+    pts, t, _ = datagen.make_batch_clouds(datagen.make_generator(1, card), b, cfg.cell_n, cfg.resolution, n_points)
+    mask = torch.ones((b, n_points), dtype=torch.bool, device=card)
+    R = torch.eye(3, device=card).expand(b, 3, 3).contiguous()
+    z = torch.zeros(b, device=card)
+    states = init_batch(cfg, b, card)
+    for _ in range(2):
+        states = batched_update(states, pts, mask, R, t, z, z, w, cfg)
+    for _ in range(7):
+        states = core.update_time(states, cfg)
+    calls = _capture_polar(monkeypatch)
+    pts2, t2, _ = datagen.make_batch_clouds(datagen.make_generator(2, card), b, cfg.cell_n, cfg.resolution, n_points)
+    batched_update(states, pts2, mask, R, t2, z, z, w, cfg)
+    assert len(calls) == 1
+    return calls[0]
+
+
+def _float_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def _assert_evaluation_equal(args) -> torch.Tensor:
+    """One launch of the kernel against the plain version on the card:
+    channels 5 and 6 (the upper bound and its flag) and the copied ones bit
+    for bit, 1 and 2 (their sums over S run in another order) within 1e-5 of
+    max(1, |plain|). Returns the kernel's output."""
+    before = raycast.KERNEL.launches
+    got = _POLAR_EVALUATE(*args)
+    assert raycast.KERNEL.launches == before + 1
+    want = raycast._polar_evaluate_in_chunks(*args)
+    for c in (0, 3, 4, 5, 6):
+        assert torch.equal(_float_bits(got[:, c]), _float_bits(want[:, c])), f"channel {c}"
+    for c in (1, 2):
+        err = (got[:, c].double() - want[:, c].double()).abs() / want[:, c].double().abs().clamp(min=1.0)
+        assert float(err.max()) <= 1e-5, f"channel {c}: {float(err.max())}"
+    return got
+
+
+def _assert_the_kernel_works(layers, got, args):
+    """The case reached every branch: cells hit, cells given an upper
+    bound, cells left alone."""
+    changed = got[:, 2] != layers[:, 2]
+    bounded = (got[:, 6] == 1.0) & (layers[:, 6] < 0.5)
+    assert int(changed.sum()) > 0 and int(bounded.sum()) > 0 and int((~changed).sum()) > 0
+
+
+@pytest.mark.parametrize("pyramid", [False, True])
+def test_polar_kernel_matches_plain_version_on_the_robot_map(card, monkeypatch, pyramid):
+    """B = 1 at the deployed config (202x202 cells, R 355), with the
+    min-slope pyramid or without."""
+    cfg = chip_smoke.deployed_config().replace(raycast_slope_from_bins=not pyramid)
+    args = _robot_evaluation(monkeypatch, cfg)
+    assert (args[-2][0], args[-2][1], args[-2][2]) == (512, 355, 128) and (args[6] is None) != pyramid
+    _assert_the_kernel_works(args[0], _assert_evaluation_equal(args), args)
+
+
+@pytest.mark.parametrize("b, pyramid", [(8, False), (8, True), (64, False)])
+def test_polar_kernel_matches_plain_version_on_datagen_batches(card, monkeypatch, b, pyramid):
+    """B = 8 and 64 maps at the default MapConfig (R 72)."""
+    args = _batch_evaluation(monkeypatch, MapConfig(raycast_slope_from_bins=not pyramid), b, card)
+    assert args[0].shape[0] == b and args[-2][1] == 72
+    _assert_the_kernel_works(args[0], _assert_evaluation_equal(args), args)
+
+
+@pytest.mark.parametrize("pyramid", [False, True])
+@pytest.mark.parametrize("bins", [36, 45])
+def test_polar_kernel_at_elevation_bins_not_a_multiple_of_32(card, monkeypatch, bins, pyramid):
+    """S = 36 (float4 rows, lanes left idle) and 45 (scalar rows) on the
+    small map."""
+    cfg = MapConfig(**SMALL_KW, raycast_elevation_bins=bins, raycast_slope_from_bins=not pyramid)
+    args = _robot_evaluation(monkeypatch, cfg, n_points=8192)
+    assert args[-2][2] == bins
+    _assert_the_kernel_works(args[0], _assert_evaluation_equal(args), args)
+
+
+@pytest.mark.parametrize("pyramid", [False, True])
+@pytest.mark.parametrize("rows, cols", [((0, 101), (0, 202)), ((57, 61), (33, 120)), ((150, 52), (140, 62))])
+def test_polar_kernel_on_blocks_of_a_sharded_map(card, monkeypatch, rows, cols, pyramid):
+    """The layers of a block of the robot's map (whole rows, an inner tile,
+    a tile at the map's corner) with the whole map's cube: against the plain
+    version on the block, and bit for bit against the whole map's launch
+    there."""
+    cfg = chip_smoke.deployed_config().replace(raycast_slope_from_bins=not pyramid)
+    args = _robot_evaluation(monkeypatch, cfg)
+    layers, normal, ic, t, pref, total, pyr, geo, _ = args
+    n = cfg.cell_n
+    block = Block(rows[0], cols[0], rows[1], cols[1], n, n)
+    rs, cs = slice(rows[0], rows[0] + rows[1]), slice(cols[0], cols[0] + cols[1])
+    sub = (layers[..., rs, cs].contiguous(), normal[..., rs, cs].contiguous(), ic[..., rs, cs].contiguous(), t,
+           pref, total, pyr, geo[:4] + (block,), cfg)
+    got = _assert_evaluation_equal(sub)
+    whole = _POLAR_EVALUATE(*args)
+    assert torch.equal(_float_bits(got), _float_bits(whole[..., rs, cs]))
+
+
+def test_polar_kernel_launches_once_per_update_and_per_step(card):
+    """KERNEL.launches rises by one per polar update (one per
+    ``raycast.polar_evaluate`` span) and per batched step at any B, and not
+    on the exact path."""
+    import time
+
+    from elevation_mapping_cupy_torch import tracing
+    from elevation_mapping_cupy_torch.nn.traversability import DEFAULT_WEIGHT_FILE, load_weights_npz
+    from elevation_mapping_cupy_torch.parallel import batched_update, init_batch
+
+    cfg = MapConfig(**SMALL_KW, raycast_mode="polar")
+    w = load_weights_npz(DEFAULT_WEIGHT_FILE).to(card)
+    rng = np.random.default_rng(6)
+    counts = {}
+    for mode in ("polar", "exact"):
+        em = ElevationMap(cfg.replace(raycast_mode=mode))
+        t0 = time.perf_counter_ns()
+        before = raycast.KERNEL.launches
+        for k in range(3):
+            R, t, pos = chip_smoke.robot_pose(4 * k)
+            em.move_to(pos, R)
+            em.input_pointcloud(chip_smoke.scene_cloud(rng, 6000, R, t, r_max=2.5), ["x", "y", "z"], R, t, 0.0, 0.0)
+        torch.cuda.synchronize()
+        spans = [s for s in tracing.spans(t0) if s.name == "raycast.polar_evaluate"]
+        counts[mode] = (raycast.KERNEL.launches - before, len(spans))
+    assert counts == {"polar": (3, 3), "exact": (0, 0)}
+    for b in (1, 5):
+        states = init_batch(cfg, b, card)
+        pts = torch.from_numpy(chip_smoke.scene_cloud(rng, 6000, *chip_smoke.robot_pose(0)[:2])).to(card)
+        pts = pts.expand(b, -1, -1).contiguous()
+        mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=card)
+        R = torch.eye(3, device=card).expand(b, 3, 3).contiguous()
+        t = torch.tensor([0.0, 0.0, 0.7], device=card).expand(b, 3).contiguous()
+        z = torch.zeros(b, device=card)
+        before = raycast.KERNEL.launches
+        for _ in range(2):
+            states = batched_update(states, pts, mask, R, t, z, z, w, cfg)
+        assert raycast.KERNEL.launches == before + 2
+
+
 def test_update_on_card_matches_cpu(card):
     """Three updates of the smoke scene on a small map, on the card and on
     the CPU: three K1 launches each, and every layer within 1e-4."""
