@@ -7,7 +7,9 @@ CUDA tensor, and loaded with ``ctypes``. The library's file name carries a
 hash of its source, so an edited source is rebuilt and a stale library is
 never loaded. Importing this module needs no ``nvcc`` and no card.
 
-A failed build or a failed launch raises; there is no fallback.
+A failed build or a failed launch raises; there is no fallback. Every
+wrapper of a kernel dispatches through :func:`on_card`: the kernel for a CUDA
+tensor, its plain PyTorch version for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import tempfile
 import threading
 from typing import Dict, Iterable, List, Sequence
 
+import torch
+
 __all__ = [
-    "CudaKernel", "KernelError", "nvcc_path", "build_all", "registered_kernels", "CSRC_DIR", "BUILD_DIR",
+    "CudaKernel", "KernelError", "nvcc_path", "build_all", "on_card", "registered_kernels", "CSRC_DIR", "BUILD_DIR",
 ]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -129,11 +133,28 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        rc = self.load()(*args)
+    def launch(self, device: torch.device, *args) -> None:
+        """One launch on ``device``'s current stream, which the entry point
+        takes as its last argument after ``args``. A device that is not a
+        card is refused before the kernel is built."""
+        if device.type != "cuda":
+            raise ValueError(f"the {self.name} kernel runs on cuda tensors, not {device}")
+        fn = self.load()
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise KernelError(f"{self.name}: launch failed with CUDA error {rc}")
         self.launches += 1
+
+
+def on_card(x: torch.Tensor, what: str) -> bool:
+    """Whether ``what`` runs its kernel (``x`` on a card) or its plain
+    version (``x`` on the CPU); any other device is refused."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{what} runs on cuda or cpu tensors, not {x.device}")
 
 
 def registered_kernels() -> Dict[str, CudaKernel]:

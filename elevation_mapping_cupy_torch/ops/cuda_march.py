@@ -45,7 +45,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import MapConfig
-from ..kernels import CudaKernel
+from ..kernels import CudaKernel, on_card
 from .geometry import Block, cell_indices, fma32, is_inside, sqrt32, true_div
 
 __all__ = [
@@ -353,10 +353,8 @@ def exact_march(
     allocation. The plain version returns contiguous tensors."""
     block = _block(cfg, block)
     _check(pack, world, valid, t, cfg, gate, block)
-    if pack.device.type == "cpu":
+    if not on_card(pack, "exact_march"):
         return exact_march_reference(pack, world, valid, t, cfg, gate, block=block)
-    if pack.device.type != "cuda":
-        raise ValueError(f"exact_march runs on cuda or cpu tensors, not {pack.device}")
     tensors = [pack, world, t] + ([gate.table] if gate is not None else [])
     if any(x.dtype != torch.float32 for x in tensors):
         raise TypeError("exact_march's kernel takes float32 pack, world, t and gate table")
@@ -379,15 +377,13 @@ def exact_march(
     # decrement and hit count (one float2 atomic adds both), the upper bound,
     # and h*w of the kernel's scratch
     buf = torch.empty(4 + 4 * n2, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        KERNEL.launch(
-            pack.data_ptr(), world.data_ptr(), valid.data_ptr(), t.data_ptr(), gate_ptr, buf.data_ptr(),
-            world.shape[0], cfg.cell_n, block.r0, block.c0, block.h, block.w,
-            cfg.resolution, cfg.ray_step, cfg.n_ray_steps,
-            cfg.max_ray_length, cfg.cleanup_step, cfg.cleanup_cos_thresh,
-            seg, gblock, gate_r0, gate_c0, rows, cols, eps, LANES_GATED if gate is not None else LANES_FLAT,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    KERNEL.launch(
+        dev, pack.data_ptr(), world.data_ptr(), valid.data_ptr(), t.data_ptr(), gate_ptr, buf.data_ptr(),
+        world.shape[0], cfg.cell_n, block.r0, block.c0, block.h, block.w,
+        cfg.resolution, cfg.ray_step, cfg.n_ray_steps,
+        cfg.max_ray_length, cfg.cleanup_step, cfg.cleanup_cos_thresh,
+        seg, gblock, gate_r0, gate_c0, rows, cols, eps, LANES_GATED if gate is not None else LANES_FLAT,
+    )
     dechits = buf[4 : 4 + 2 * n2].view(n2, 2)
     counts = buf[:4].view(torch.int64) if gate is not None else None
     return MarchResult(dechits[:, 0], dechits[:, 1], buf[4 + 2 * n2 : 4 + 3 * n2], counts)

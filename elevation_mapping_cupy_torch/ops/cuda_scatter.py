@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels import CudaKernel
+from ..kernels import CudaKernel, on_card
 
 __all__ = ["KERNEL", "LaunchPlan", "launch_plan", "scatter_add_streams", "scatter_add_streams_reference"]
 
@@ -106,10 +106,8 @@ def scatter_add_streams(
     :func:`scatter_add_streams_reference` for the contract. A CUDA tensor
     goes to the kernel; a CPU tensor to the plain version."""
     _check(idx, mask, values)
-    if values.device.type == "cpu":
+    if not on_card(values, "scatter_add_streams"):
         return scatter_add_streams_reference(idx, mask, values, n_cells)
-    if values.device.type != "cuda":
-        raise ValueError(f"scatter_add_streams runs on cuda or cpu tensors, not {values.device}")
     if not (idx.is_contiguous() and mask.is_contiguous() and values.is_contiguous()):
         raise ValueError("scatter_add_streams needs contiguous tensors")
     b, k, n = values.shape
@@ -118,10 +116,8 @@ def scatter_add_streams(
     plan = launch_plan(b, k, n, n_cells)
     # the entry point zeroes the output on the stream before it adds
     out = torch.empty((b, k, n_cells), dtype=torch.float32, device=values.device)
-    with torch.cuda.device(values.device):
-        KERNEL.launch(
-            idx.data_ptr(), mask.data_ptr(), values.data_ptr(), out.data_ptr(),
-            b, n, k, n_cells, plan.slices, plan.shared_bytes,
-            torch.cuda.current_stream(values.device).cuda_stream,
-        )
+    KERNEL.launch(
+        values.device, idx.data_ptr(), mask.data_ptr(), values.data_ptr(), out.data_ptr(),
+        b, n, k, n_cells, plan.slices, plan.shared_bytes,
+    )
     return out

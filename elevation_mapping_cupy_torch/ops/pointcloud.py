@@ -88,7 +88,6 @@ def error_counting(
         j,
         [inlier.to(layers.dtype), assoc.mask.to(layers.dtype)],
         assoc.mask,
-        exact=(True, True),
     )
     counted = inlier if owned is None else inlier & owned
     error_sum = torch.sum(torch.where(counted, z - map_h, 0.0), dim=-1)

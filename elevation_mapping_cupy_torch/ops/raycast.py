@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from .. import tracing
 from ..config import MapConfig
-from ..kernels import CudaKernel
+from ..kernels import CudaKernel, on_card
 from ..state import stack_tensors
 from . import cuda_march, scatter
 from .geometry import Block, PointAssociation, true_div
@@ -389,8 +389,8 @@ def visibility_cleanup_polar(
     two_pi = 2.0 * math.pi
     nb = layers.shape[0]
 
-    on_card = layers.is_cuda
-    with tracing.span("raycast.polar_cube", stream=on_card):
+    is_cuda = layers.is_cuda
+    with tracing.span("raycast.polar_cube", stream=is_cuda):
         p = assoc.world
         v = p - t[:, None, :]
         len_xy = torch.sqrt(v[..., 0] ** 2 + v[..., 1] ** 2)
@@ -438,7 +438,7 @@ def visibility_cleanup_polar(
                 levels.append(torch.minimum(prev, torch.roll(prev, -(1 << (lv - 1)), dims=1)))
             pyramid = torch.stack(levels, dim=1).reshape(nb, (n_levels + 1) * A * R, S)  # (B, L+1, A, R, S)
 
-    with tracing.span("raycast.polar_evaluate", stream=on_card):
+    with tracing.span("raycast.polar_evaluate", stream=is_cuda):
         out = polar_evaluate(
             layers, normal, inlier_cnt, t, pref.reshape(nb, A * R, 2 * S), total, pyramid,
             (A, R, S, n_levels, block), cfg,
@@ -469,12 +469,10 @@ def polar_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo
     A CUDA tensor goes to the kernel (:func:`launch_polar_evaluate`), one
     launch for the whole batch; a CPU tensor to :func:`_polar_evaluate`, in
     chunks of at most ``POLAR_EVAL_BYTES`` of (maps x cells x S)."""
-    if layers.device.type == "cuda":
+    if on_card(layers, "the polar evaluation"):
         return launch_polar_evaluate(
             layers.contiguous(), normal.contiguous(), inlier_cnt, t.contiguous(), pref_flat, total, pyramid, geo, cfg
         )
-    if layers.device.type != "cpu":
-        raise ValueError(f"the polar evaluation runs on cuda or cpu tensors, not {layers.device}")
     return _polar_evaluate_in_chunks(layers, normal, inlier_cnt, t, pref_flat, total, pyramid, geo, cfg)
 
 
@@ -537,21 +535,17 @@ def launch_polar_evaluate(layers, normal, inlier_cnt, t, pref_flat, total, pyram
         raise ValueError("the polar evaluation kernel needs contiguous tensors (inlier_cnt and total: each map)")
     if any(x.device != layers.device for x in tensors):
         raise ValueError("the layers, normals, counts, cube and pyramid must lie on one device")
-    if layers.device.type != "cuda":
-        raise ValueError(f"the polar evaluation kernel runs on cuda tensors, not {layers.device}")
     out = torch.empty_like(layers)
     if out.numel() == 0:
         return out
     table = _bucket_table(S, cfg.ray_step, cfg.resolution, torch.float32, layers.device)
     consts = _kernel_constants(cfg, A)
-    with torch.cuda.device(layers.device):
-        KERNEL.launch(
-            layers.data_ptr(), normal.data_ptr(), inlier_cnt.data_ptr(), t.data_ptr(), pref_flat.data_ptr(),
-            total.data_ptr(), None if pyramid is None else pyramid.data_ptr(), table.data_ptr(), out.data_ptr(),
-            inlier_cnt.stride(0), total.stride(0), layers.shape[0], block.h, block.w, block.r0, block.c0,
-            cfg.cell_n, A, R, S, n_levels, (ctypes.c_float * len(consts))(*consts), len(consts),
-            torch.cuda.current_stream(layers.device).cuda_stream,
-        )
+    KERNEL.launch(
+        layers.device, layers.data_ptr(), normal.data_ptr(), inlier_cnt.data_ptr(), t.data_ptr(),
+        pref_flat.data_ptr(), total.data_ptr(), None if pyramid is None else pyramid.data_ptr(), table.data_ptr(),
+        out.data_ptr(), inlier_cnt.stride(0), total.stride(0), layers.shape[0], block.h, block.w, block.r0, block.c0,
+        cfg.cell_n, A, R, S, n_levels, (ctypes.c_float * len(consts))(*consts), len(consts),
+    )
     return out
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import contextvars
 import math
-from typing import Sequence, Tuple
+from typing import Sequence
 
 import torch
 
@@ -82,14 +82,11 @@ def scatter_add_streams_2d(
     flat_idx: torch.Tensor,
     values: Sequence[torch.Tensor],
     mask: torch.Tensor,
-    exact: Tuple[bool, ...],
 ) -> torch.Tensor:
     """Scatter K per-point streams into an (h, w) grid; returns (..., K, h, w).
 
-    ``exact[k]`` marks streams whose values are integers (flags, counts).
-    The JAX package's MXU kernel needs it to split the other streams into
-    bf16 parts; the atomic kernel adds every stream in float32 and keeps it
-    only for the same signature (integer streams sum exactly below 2^24).
+    K1 adds every stream in float32 (integer streams exactly below 2^24),
+    so unlike the JAX package's MXU kernel it takes no ``exact`` flags.
 
     Under an active ``sharded_scatter_ctx`` the call is dispatched
     shard-locally: this process scatters the points it owns onto its own
@@ -99,8 +96,8 @@ def scatter_add_streams_2d(
     if sharding is not None:
         from ..parallel.sharded_scatter import sharded_scatter_add_streams_2d
 
-        return sharded_scatter_add_streams_2d(h, w, flat_idx, values, mask, tuple(exact), *sharding)
-    return scatter_add_streams_2d_local(h, w, flat_idx, values, mask, exact)
+        return sharded_scatter_add_streams_2d(h, w, flat_idx, values, mask, *sharding)
+    return scatter_add_streams_2d_local(h, w, flat_idx, values, mask)
 
 
 def scatter_add_streams_2d_local(
@@ -109,12 +106,9 @@ def scatter_add_streams_2d_local(
     flat_idx: torch.Tensor,
     values: Sequence[torch.Tensor],
     mask: torch.Tensor,
-    exact: Tuple[bool, ...],
 ) -> torch.Tensor:
     """The body of :func:`scatter_add_streams_2d` on one process's grid
     (the whole grid, or a block of a sharded one): one K1 launch."""
-    if len(exact) != len(values):
-        raise ValueError(f"exact names {len(exact)} streams, values has {len(values)}")
     out = scatter_add_multi(h * w, flat_idx, values, mask)
     return out.reshape(*out.shape[:-1], h, w)
 

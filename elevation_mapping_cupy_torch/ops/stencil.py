@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import tracing
-from ..kernels import CudaKernel
+from ..kernels import CudaKernel, on_card
 from .geometry import Block, true_div
 
 __all__ = [
@@ -125,10 +125,8 @@ def dilation_fill(
 
     A CUDA tensor goes to the kernel (:func:`launch_dilation_fill`), a CPU
     tensor to :func:`dilation_fill_reference`; both give the same bits."""
-    if map2d.device.type == "cuda":
+    if on_card(map2d, "dilation_fill"):
         return launch_dilation_fill(map2d, mask, size, block, edges)
-    if map2d.device.type != "cpu":
-        raise ValueError(f"dilation_fill runs on cuda or cpu tensors, not {map2d.device}")
     return dilation_fill_reference(map2d, mask, size, block, edges)
 
 
@@ -158,8 +156,6 @@ def launch_dilation_fill(
         raise ValueError("the dilation kernel needs contiguous rows and one stride between maps")
     if edges is not None and not all(e.is_contiguous() for e in edges):
         raise ValueError("the dilation kernel needs contiguous edges")
-    if map2d.device.type != "cuda":
-        raise ValueError(f"the dilation kernel runs on cuda tensors, not {map2d.device}")
     if edges is None:
         left = right = None
         modes = (_WRAP, _WRAP) if w == block.gw else (_NO_EDGE, _NO_EDGE)
@@ -168,13 +164,11 @@ def launch_dilation_fill(
         modes = (_GIVEN if block.c0 == 0 else _NO_EDGE, _GIVEN if block.c0 + w == block.gw else _NO_EDGE)
     out = torch.empty(m3.shape, dtype=torch.float32, device=map2d.device)
     out_mask = torch.empty_like(out)
-    with torch.cuda.device(map2d.device):
-        KERNEL.launch(
-            m3.data_ptr(), k3.data_ptr(), left, right, out.data_ptr(), out_mask.data_ptr(),
-            m3.stride(0), k3.stride(0), m3.shape[0], h, w, size,
-            *(int(v) for v in (block.r0, block.c0, block.gh, block.gw)), *modes,
-            torch.cuda.current_stream(map2d.device).cuda_stream,
-        )
+    KERNEL.launch(
+        map2d.device, m3.data_ptr(), k3.data_ptr(), left, right, out.data_ptr(), out_mask.data_ptr(),
+        m3.stride(0), k3.stride(0), m3.shape[0], h, w, size,
+        *(int(v) for v in (block.r0, block.c0, block.gh, block.gw)), *modes,
+    )
     return out.view(map2d.shape), out_mask.view(map2d.shape)
 
 

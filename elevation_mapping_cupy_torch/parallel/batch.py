@@ -25,7 +25,7 @@ from .. import state as state_mod
 from ..config import MapConfig
 from ..nn.traversability import TravFilter
 from ..state import MapState
-from .mesh import Mesh, axis_part, mesh_device
+from .mesh import Mesh, axis_part, mesh_device, part_range
 
 __all__ = [
     "init_batch",
@@ -102,10 +102,7 @@ def shard_states(states: MapState, mesh: Mesh, axis: str = "env") -> MapState:
     batch is cut into as many contiguous parts as the mesh axis ``axis``
     has, the last part taking the remainder. Every process calls it with the
     same global batch."""
-    parts, part = axis_part(mesh, axis)
-    batch = states.layers.shape[0]
-    per = batch // parts
-    lo, hi = part * per, (part + 1) * per if part < parts - 1 else batch
+    lo, hi = part_range(states.layers.shape[0], *axis_part(mesh, axis))
     dev = mesh_device(mesh)
     return MapState(*(x[lo:hi].to(dev) for x in states))
 

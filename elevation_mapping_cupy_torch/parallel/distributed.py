@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from .mesh import Mesh, axis_part, make_mesh, mesh_device
+from .mesh import Mesh, axis_part, make_mesh, mesh_device, part_range
 
 __all__ = ["initialize", "shutdown", "pod_mesh", "HostFeed", "process_local_slice", "process_count", "process_index"]
 
@@ -113,9 +113,7 @@ def pod_mesh(axis_names: Tuple[str, str] = ("host", "chip"), device: Union[None,
 def process_local_slice(global_batch: int) -> Tuple[int, int]:
     """[start, stop) of the env range this process owns under env sharding;
     the last process takes the remainder."""
-    n, i = process_count(), process_index()
-    per = global_batch // n
-    return i * per, (i + 1) * per if i < n - 1 else global_batch
+    return part_range(global_batch, process_count(), process_index())
 
 
 class HostFeed:
@@ -132,9 +130,7 @@ class HostFeed:
         self.global_batch = global_batch
         self.mesh = mesh
         self.axis = axis
-        parts, part = axis_part(mesh, axis)
-        per = global_batch // parts
-        self.slice = (part * per, (part + 1) * per if part < parts - 1 else global_batch)
+        self.slice = part_range(global_batch, *axis_part(mesh, axis))
         self.device = mesh_device(mesh)
 
     def globalize(self, local) -> torch.Tensor:

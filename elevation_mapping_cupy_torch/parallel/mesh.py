@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["LocalMesh", "make_mesh", "mesh_device", "axis_part"]
+__all__ = ["LocalMesh", "make_mesh", "mesh_device", "axis_part", "part_range"]
 
 
 class LocalMesh(NamedTuple):
@@ -105,3 +105,10 @@ def axis_part(mesh: Mesh, axis: str) -> Tuple[int, int]:
         raise ValueError(f"mesh has no axis {axis!r}: {names}")
     dim = names.index(axis)
     return mesh.size(dim), mesh.get_local_rank(dim)
+
+
+def part_range(n: int, parts: int, part: int) -> Tuple[int, int]:
+    """[lo, hi) of part ``part`` of a batch of ``n`` cut into ``parts``
+    contiguous parts, the last taking the remainder."""
+    per = n // parts
+    return part * per, (part + 1) * per if part < parts - 1 else n

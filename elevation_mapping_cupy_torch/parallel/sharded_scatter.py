@@ -19,7 +19,7 @@ values per point from the block.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 
@@ -36,7 +36,6 @@ def sharded_scatter_add_streams_2d(
     flat_idx: torch.Tensor,
     values: Sequence[torch.Tensor],
     mask: torch.Tensor,
-    exact: Tuple[bool, ...],
     mesh: Mesh,
     axis_name: str = "x",
     col_axis_name: Optional[str] = None,
@@ -58,7 +57,7 @@ def sharded_scatter_add_streams_2d(
     block = Block(rows.index * h_loc, cols.index * w_loc, h_loc, w_loc, h_loc * rows.size, w_loc * cols.size)
     local, held = block.localize(flat_idx // w, flat_idx % w)
     own = mask & held
-    out = sc.scatter_add_streams_2d_local(h_loc, w_loc, torch.where(own, local, 0), values, own, exact)
+    out = sc.scatter_add_streams_2d_local(h_loc, w_loc, torch.where(own, local, 0), values, own)
     return out[..., : max(h - block.r0, 0), : max(w - block.c0, 0)]
 
 

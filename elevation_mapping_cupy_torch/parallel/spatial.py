@@ -39,7 +39,7 @@ from ..ops.geometry import Block
 from ..state import MapState
 from . import halo
 from .halo import Axis
-from .mesh import Mesh, axis_part
+from .mesh import Mesh, axis_part, part_range
 
 __all__ = [
     "TRAV_REACH",
@@ -269,8 +269,8 @@ def shard_states_spatial_batched(
     parts, part = axis_part(mesh, env_axis)
     if b % parts:
         raise ValueError(f"batch {b} not divisible by mesh axis {env_axis!r} ({parts})")
-    per = b // parts
-    local = MapState(*(x[part * per : (part + 1) * per] for x in states))
+    lo, hi = part_range(b, parts, part)
+    local = MapState(*(x[lo:hi] for x in states))
     return shard_state_spatial(local, mesh, axis, col_axis)
 
 

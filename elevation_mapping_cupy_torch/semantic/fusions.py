@@ -122,7 +122,7 @@ def _sum_features(
     h, w = up.semantic.shape[-2:]
     streams = [feats[:, k] for k in range(feats.shape[1])]
     mask = assoc.valid & assoc.inside
-    return scatter.scatter_add_streams_2d(h, w, assoc.flat_idx, streams, mask, exact=(False,) * len(streams))
+    return scatter.scatter_add_streams_2d(h, w, assoc.flat_idx, streams, mask)
 
 
 def fuse_average(
@@ -323,7 +323,7 @@ def fuse_color(
     streams = [torch.ones(feats.shape[0], dtype=torch.float32, device=feats.device)]
     for k in range(len(layer_ids)):
         streams.extend(c.to(torch.float32) for c in rgb_float_to_uint(feats[:, k]))
-    sums = scatter.scatter_add_streams_2d(h, w, assoc.flat_idx, streams, mask, exact=(True,) * len(streams))
+    sums = scatter.scatter_add_streams_2d(h, w, assoc.flat_idx, streams, mask)
     cnt = sums[0]
     has = cnt > 0
     safe = torch.clamp(cnt, min=1.0)

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import chip_smoke
+from tests import torch_scenes
 from elevation_mapping_cupy_tpu import MapConfig as JaxConfig
 from elevation_mapping_cupy_tpu import core as jcore
 from elevation_mapping_cupy_tpu import load_config as jload_config
@@ -62,8 +62,8 @@ def test_trajectory_matches_jax_mapper():
     jem = JaxMap(JaxConfig(**CFG_KW))
     tem = ElevationMap(MapConfig(**CFG_KW), device="cpu")
     for k in range(3):
-        R, t, pos = chip_smoke.robot_pose(4 * k)
-        pts = chip_smoke.scene_cloud(rng, 6000, R, t, r_max=2.5)
+        R, t, pos = torch_scenes.robot_pose(4 * k)
+        pts = torch_scenes.scene_cloud(rng, 6000, R, t, r_max=2.5)
         pts[::97] = np.nan  # the mapper drops NaN rows
         noise = 0.2 if k == 1 else 0.0  # above position_noise_thresh
         for em in (jem, tem):
@@ -98,8 +98,8 @@ def test_update_routes_three_scatters(monkeypatch):
     cfg = MapConfig(**CFG_KW)
     tem = ElevationMap(cfg, device="cpu")
     before = cuda_scatter.KERNEL.launches
-    R, t, _ = chip_smoke.robot_pose(0)
-    tem.input_pointcloud(chip_smoke.scene_cloud(np.random.default_rng(0), 3000, R, t, 2.5), ["x", "y", "z"], R, t, 0, 0)
+    R, t, _ = torch_scenes.robot_pose(0)
+    tem.input_pointcloud(torch_scenes.scene_cloud(np.random.default_rng(0), 3000, R, t, 2.5), ["x", "y", "z"], R, t, 0, 0)
     cube = cfg.azimuth_bins * (cfg.n_ray_steps + 2) * cfg.raycast_elevation_bins
     assert calls == [(2, cfg.cell_n**2), (4, cfg.cell_n**2), (2, cube)]
     assert cuda_scatter.KERNEL.launches == before
@@ -193,8 +193,8 @@ def test_mapper_refuses_what_is_not_ported():
         tem.initialize_map(np.zeros((3, 3)))
     # the exact march is ported: an exact-mode map takes a cloud
     exact = ElevationMap(MapConfig(**dict(CFG_KW, raycast_mode="exact")), device="cpu")
-    R, t, _ = chip_smoke.robot_pose(0)
-    exact.input_pointcloud(chip_smoke.scene_cloud(np.random.default_rng(1), 2000, R, t, 2.0), ["x", "y", "z"], R, t, 0, 0)
+    R, t, _ = torch_scenes.robot_pose(0)
+    exact.input_pointcloud(torch_scenes.scene_cloud(np.random.default_rng(1), 2000, R, t, 2.0), ["x", "y", "z"], R, t, 0, 0)
     valid = exact.get_layers(["is_valid"])["is_valid"] > 0.5
     assert valid.mean() > 0.2 and np.isfinite(exact.get_layers(["elevation"])["elevation"][valid]).all()
 
@@ -224,7 +224,7 @@ def _imported_modules(path):
 
 def _port_files():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    return files + [os.path.join(REPO, "chip_smoke.py")]
+    return files + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "torch_scenes.py")]
 
 
 def _forbidden_imports(path):
@@ -274,7 +274,7 @@ def test_weights_file_is_a_byte_copy():
 
 def test_chip_smoke_config_is_the_deployed_yaml():
     yaml_path = os.path.join(REPO, "configs", "core_param.yaml")
-    lit = chip_smoke.deployed_config()
+    lit = torch_scenes.deployed_config()
     assert lit == load_config(yaml_path)
     assert dataclasses.asdict(lit) == dataclasses.asdict(jload_config(yaml_path))
     assert lit.cell_n == 202 and lit.n_ray_steps == 353
@@ -282,10 +282,10 @@ def test_chip_smoke_config_is_the_deployed_yaml():
 
 
 def test_chip_smoke_semantic_config_is_the_mem_yaml():
-    """chip_smoke's semantic map: the deployed values with the layers, the
+    """torch_scenes' semantic map: the deployed values with the layers, the
     fusion tables and the weights of ``configs/semantic_mem.yaml``."""
     mem = load_config(os.path.join(REPO, "configs", "semantic_mem.yaml"))
-    lit = chip_smoke.semantic_config()
+    lit = torch_scenes.semantic_config()
     keys = ("semantic_layers", "pointcloud_channel_fusions", "image_channel_fusions", "average_weight",
             "image_exponential_alpha", "resolution", "map_length")
     for key in keys:
@@ -293,11 +293,11 @@ def test_chip_smoke_semantic_config_is_the_mem_yaml():
         if key.endswith("_fusions"):  # the loader sorts the table; the lookup does not depend on its order
             a, b = dict(a), dict(b)
         assert a == b, key
-    assert lit.replace(**{k: getattr(chip_smoke.deployed_config(), k) for k in keys[:5]}) == chip_smoke.deployed_config()
-    assert tuple(lit.semantic_layers) == chip_smoke.MEM_CHANNELS
-    assert [lit.fusion_for_channel(c) for c in chip_smoke.MEM_CHANNELS] == ["color"] + ["class_average"] * 3
-    allf = lit.replace(pointcloud_channel_fusions=chip_smoke.ALL_FUSIONS_TABLE)
-    assert [allf.fusion_for_channel(c) for c in chip_smoke.ALL_FUSIONS_CHANNELS] == [
+    assert lit.replace(**{k: getattr(torch_scenes.deployed_config(), k) for k in keys[:5]}) == torch_scenes.deployed_config()
+    assert tuple(lit.semantic_layers) == torch_scenes.MEM_CHANNELS
+    assert [lit.fusion_for_channel(c) for c in torch_scenes.MEM_CHANNELS] == ["color"] + ["class_average"] * 3
+    allf = lit.replace(pointcloud_channel_fusions=torch_scenes.ALL_FUSIONS_TABLE)
+    assert [allf.fusion_for_channel(c) for c in torch_scenes.ALL_FUSIONS_CHANNELS] == [
         "average", "bayesian_inference", "class_bayesian", "class_max", "class_max"]
 
 

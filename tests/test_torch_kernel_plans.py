@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+from tests import torch_scenes
 from elevation_mapping_cupy_torch import MapConfig
 from elevation_mapping_cupy_torch.ops import cuda_march, cuda_scatter
 from elevation_mapping_cupy_torch.ops.geometry import fma32, sqrt32
@@ -29,7 +29,7 @@ def _torch_threads():
 # K1: the launch plan
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("cfg", [chip_smoke.deployed_config(), MapConfig()], ids=["deployed", "default"])
+@pytest.mark.parametrize("cfg", [torch_scenes.deployed_config(), MapConfig()], ids=["deployed", "default"])
 def test_map_scatters_take_the_private_path_and_the_cube_the_global(cfg):
     cells = cfg.cell_n * cfg.cell_n
     assert cells == 40804
@@ -43,7 +43,7 @@ def test_map_scatters_take_the_private_path_and_the_cube_the_global(cfg):
 
 
 def test_deployed_cube_has_23_million_bins():
-    cfg = chip_smoke.deployed_config()
+    cfg = torch_scenes.deployed_config()
     assert cfg.azimuth_bins * (cfg.n_ray_steps + 2) * cfg.raycast_elevation_bins == 23_265_280
 
 
@@ -87,7 +87,7 @@ def _ulp_neighbours(steps: torch.Tensor) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("inclusive", [False, True], ids=["left", "right"])
-@pytest.mark.parametrize("cfg", [chip_smoke.deployed_config(), MapConfig()], ids=["deployed-353", "default-70"])
+@pytest.mark.parametrize("cfg", [torch_scenes.deployed_config(), MapConfig()], ids=["deployed-353", "default-70"])
 def test_steps_below_equals_searchsorted(cfg, inclusive):
     """Every float32 one ulp below, at and one ulp above each s_m, zero,
     negatives, +inf and random x: the count equals searchsorted's."""
@@ -115,10 +115,10 @@ def test_steps_below_with_no_steps():
 def test_ray_table_counts_match_the_closed_form():
     """The plain version's live-step count (two searchsorted calls) equals
     the closed form on the rays of the smoke scene."""
-    cfg = chip_smoke.deployed_config()
+    cfg = torch_scenes.deployed_config()
     rng = np.random.default_rng(3)
-    R, t, _ = chip_smoke.robot_pose(2)
-    world = torch.from_numpy((chip_smoke.scene_cloud(rng, 4096, R, t) @ R.T + t).astype(np.float32))
+    R, t, _ = torch_scenes.robot_pose(2)
+    world = torch.from_numpy((torch_scenes.scene_cloud(rng, 4096, R, t) @ R.T + t).astype(np.float32))
     t = torch.from_numpy(t)
     valid = torch.ones(4096, dtype=torch.bool)
     _, k = cuda_march.ray_table(world, valid, t, cfg)

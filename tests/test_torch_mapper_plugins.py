@@ -19,7 +19,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import chip_smoke
+from tests import torch_scenes
 from elevation_mapping_cupy_tpu import load_config as jload_config
 from elevation_mapping_cupy_tpu.mapper import ElevationMap as JaxMap
 
@@ -52,11 +52,11 @@ def _drive(frames=3, seed=50):
     tem = ElevationMap(load_config(MEM_YAML, **SMALL), plugin_config_file=PLUGIN_YAML, device="cpu")
     rng = np.random.default_rng(seed)
     for k in range(frames):
-        R, t, pos = chip_smoke.robot_pose(4 * k)
+        R, t, pos = torch_scenes.robot_pose(4 * k)
         n = 3000
         cloud = np.concatenate([
-            chip_smoke.scene_cloud(rng, n, R, t, r_max=2.5),
-            chip_smoke.pack_rgb(rng.integers(0, 256, (n, 3)))[:, None],
+            torch_scenes.scene_cloud(rng, n, R, t, r_max=2.5),
+            torch_scenes.pack_rgb(rng.integers(0, 256, (n, 3)))[:, None],
             rng.uniform(0, 1, (n, 3)).astype(np.float32),
         ], axis=1)
         for em in (jem, tem):

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import chip_smoke
+from tests import torch_scenes
 from elevation_mapping_cupy_tpu import load_config as jload_config
 from elevation_mapping_cupy_tpu.mapper import ElevationMap as JaxMap
 
@@ -42,10 +42,10 @@ def _bits(a) -> np.ndarray:
 
 
 def _semantic_cloud(rng, k, n=3000):
-    R, t, pos = chip_smoke.robot_pose(4 * k)
-    pts = chip_smoke.scene_cloud(rng, n, R, t, r_max=2.5)
+    R, t, pos = torch_scenes.robot_pose(4 * k)
+    pts = torch_scenes.scene_cloud(rng, n, R, t, r_max=2.5)
     cloud = np.concatenate(
-        [pts, chip_smoke.pack_rgb(rng.integers(0, 256, (n, 3)))[:, None], rng.uniform(0, 1, (n, 3)).astype(np.float32)], axis=1
+        [pts, torch_scenes.pack_rgb(rng.integers(0, 256, (n, 3)))[:, None], rng.uniform(0, 1, (n, 3)).astype(np.float32)], axis=1
     )
     cloud[::97, :3] = np.nan  # the mapper drops NaN rows
     return cloud, R, t, pos
@@ -118,7 +118,7 @@ def test_layers_grow_on_first_sight_and_between_updates():
     table = (("rgb", "color"), ("g.*", "class_average"), ("t.*", "class_bayesian"), ("p.*", "class_max"))
     jem, tem = _maps(semantic_layers=(), pointcloud_channel_fusions=table)
     cloud, R, t, pos = _semantic_cloud(rng, 0)
-    cloud[:, 6] = chip_smoke.pack_class(rng.uniform(0.2, 1, len(cloud)), rng.integers(1, 4, len(cloud)))
+    cloud[:, 6] = torch_scenes.pack_class(rng.uniform(0.2, 1, len(cloud)), rng.integers(1, 4, len(cloud)))
     cloud = np.concatenate([cloud, rng.uniform(0, 1, (len(cloud), 1)).astype(np.float32)], 1)
     names = CHANNELS + ["unmapped"]
     for em in (jem, tem):
@@ -197,7 +197,7 @@ def test_packed_layers_survive_every_move_bit_for_bit():
     tem = ElevationMap(cfg, device="cpu")
     n = tem.cell_n
     arrays = state_to_numpy(tem.state)
-    colour = chip_smoke.pack_rgb(rng.integers(0, 256, (n, n, 3)))
+    colour = torch_scenes.pack_rgb(rng.integers(0, 256, (n, n, 3)))
     cmax = ((rng.integers(0, 1 << 16, (n, n)).astype(np.uint32) << 16) | rng.integers(0, 1 << 16, (n, n)).astype(np.uint32))
     cmax[0, :3] = [0x7F800000, 0x7FC00000, 0xFFFFFFFF]
     arrays["semantic"] = np.stack([colour, cmax.view(np.float32)])

@@ -7,7 +7,7 @@ on the order of their operands); uniform_smooth and every float plugin
 layer within 1e-5 (sums of 9 values in one order, an FMA XLA:CPU may
 contract); semantic_filter bit for bit (its packed colours are only
 gathered); features_pca channel by channel, equal within 1 or mirrored
-(254 - c) within 1 (``chip_smoke.pca_channels``: an eigenvector's sign is
+(254 - c) within 1 (``torch_scenes.pca_channels``: an eigenvector's sign is
 the solver's choice).
 """
 
@@ -19,7 +19,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import chip_smoke
+from tests import torch_scenes
 from elevation_mapping_cupy_tpu.ops import stencil as jstencil
 from elevation_mapping_cupy_tpu.plugins import PluginManager as JaxManager
 from elevation_mapping_cupy_tpu.plugins.builtin import REGISTRY as JREG
@@ -75,7 +75,7 @@ def _layers(rng, n=N, nan_semantic=False):
     if nan_semantic:
         sem[1, 5, 5:9] = np.nan
         sem[0, 6, 2] = np.nan
-    colour = chip_smoke.pack_rgb(rng.integers(0, 256, (n, n, 3)))
+    colour = torch_scenes.pack_rgb(rng.integers(0, 256, (n, n, 3)))
     sem = np.concatenate([sem, colour[None]])
     yaw, pitch = 0.7, 0.2
     Rz = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]])
@@ -218,7 +218,7 @@ def test_features_pca_matches_jax_by_channel(nan_feature):
     if nan_feature:
         assert not _bits(want).any() and not _bits(got).any()
         return
-    channels = chip_smoke.pca_channels(got, want)
+    channels = torch_scenes.pca_channels(got, want)
     print("features_pca channels against JAX:", channels)
     assert all(c in ("equal", "mirrored") for c in channels)
     assert len(np.unique(_bits(got))) > N * N // 2
@@ -306,22 +306,22 @@ def test_load_plugin_settings_matches_jax(path):
 
 
 def test_chip_smoke_plugin_literal_is_the_yaml():
-    """The card's machine has no PyYAML: chip_smoke carries
+    """The card's machine has no PyYAML: tests/torch_scenes.py carries
     configs/plugin_config.yaml as a literal, which must load the same
     plugins with the same settings."""
     from_yaml = PluginManager(N, device="cpu")
     from_yaml.load_plugin_settings(os.path.join(REPO, "configs", "plugin_config.yaml"))
     lit = PluginManager(N, device="cpu")
-    lit.init(*chip_smoke.plugin_settings())
+    lit.init(*torch_scenes.plugin_settings())
     assert lit.plugin_params == from_yaml.plugin_params
     assert [vars(p) for p in lit.plugins] == [vars(p) for p in from_yaml.plugins]
     both = PluginManager(N, device="cpu")
-    both.init(*chip_smoke.plugin_settings(chip_smoke.PLUGIN_SETTINGS + chip_smoke.SEMANTIC_PLUGIN_SETTINGS))
+    both.init(*torch_scenes.plugin_settings(torch_scenes.PLUGIN_SETTINGS + torch_scenes.SEMANTIC_PLUGIN_SETTINGS))
     assert both.plugin_names[-2:] == ["semantic_filter", "features_pca"]
 
 
 def test_pca_channel_rule():
-    """chip_smoke.pca_channels: a channel one off is equal, the truncated
+    """torch_scenes.pca_channels: a channel one off is equal, the truncated
     mirror trunc(255 - x) of c = trunc(x) is mirrored, anything else fails."""
     x = np.random.default_rng(18).uniform(0, 255, (3, 40, 40))
     c = np.floor(x).astype(np.uint32)
@@ -330,9 +330,9 @@ def test_pca_channel_rule():
     mirror[1] = np.floor(255 - x[1]).astype(np.uint32)
     off = c.copy()
     off[2] = np.minimum(off[2] + 1, 255)
-    assert chip_smoke.pca_channels(pack(mirror), pack(c)) == ["equal", "mirrored", "equal"]
-    assert chip_smoke.pca_channels(pack(off), pack(c)) == ["equal", "equal", "equal"]
+    assert torch_scenes.pca_channels(pack(mirror), pack(c)) == ["equal", "mirrored", "equal"]
+    assert torch_scenes.pca_channels(pack(off), pack(c)) == ["equal", "equal", "equal"]
     bad = c.copy()
     bad[0, 3, 3] = (bad[0, 3, 3] + 128) % 256
     with pytest.raises(AssertionError, match="channel 0"):
-        chip_smoke.pca_channels(pack(bad), pack(c))
+        torch_scenes.pca_channels(pack(bad), pack(c))

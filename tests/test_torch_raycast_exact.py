@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import chip_smoke
+from tests import torch_scenes
 from elevation_mapping_cupy_tpu import MapConfig as JaxConfig
 from elevation_mapping_cupy_tpu import core as jcore
 from elevation_mapping_cupy_tpu import init_state as jinit_state
@@ -321,8 +321,8 @@ def test_mapper_routing_matches_jax():
         em._exact_router.route = logged
     rng = np.random.default_rng(21)
     for k in range(4):
-        R, t, pos = chip_smoke.robot_pose(3 * k)
-        pts = chip_smoke.scene_cloud(rng, 3000, R, t, r_max=2.0)
+        R, t, pos = torch_scenes.robot_pose(3 * k)
+        pts = torch_scenes.scene_cloud(rng, 3000, R, t, r_max=2.0)
         for em in (jem, tem):
             em.move_to(pos, R)
             em.input_pointcloud(pts, ["x", "y", "z"], R, t, 0.0, 0.0)

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+from tests import torch_scenes
 from elevation_mapping_cupy_tpu import MapConfig as JaxConfig
 from elevation_mapping_cupy_tpu import replay as jax_cli
 from elevation_mapping_cupy_tpu.runtime.replay import replay as jax_replay
@@ -82,7 +82,7 @@ def test_replay_of_a_log_with_semantic_columns_matches_jax(tmp_path):
     for i in range(3):
         pts = rng.uniform(-0.9, 0.9, (500, 3)).astype(np.float32)
         pts[:, 2] = rng.uniform(-0.1, 0.2, 500)
-        packed = chip_smoke.pack_rgb(rng.integers(0, 256, (500, 3)))
+        packed = torch_scenes.pack_rgb(rng.integers(0, 256, (500, 3)))
         cloud = np.concatenate([pts, packed[:, None], rng.uniform(0, 1, (500, 1)).astype(np.float32)], 1)
         w.add(cloud, np.eye(3), np.array([0, 0, 0.5]), position=np.array([0.11 * i, 0, 0]), stamp=0.1 * i)
     path = str(tmp_path / "semantic_log.npz")

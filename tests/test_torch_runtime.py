@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+from tests import torch_scenes
 from elevation_mapping_cupy_tpu import MapConfig as JaxConfig
 from elevation_mapping_cupy_tpu.runtime import native as jnative
 from elevation_mapping_cupy_tpu.runtime import service as jservice
@@ -313,7 +313,7 @@ def test_native_deinterleave_and_pack_rgb_bit_for_bit(rng):
     got = native.pack_rgb(r, g, b)
     np.testing.assert_array_equal(got.view(np.uint32), native.pack_rgb(r, g, b, plain=True).view(np.uint32))
     np.testing.assert_array_equal(got.view(np.uint32), jnative.pack_rgb(r, g, b).view(np.uint32))
-    np.testing.assert_array_equal(got.view(np.uint32), chip_smoke.pack_rgb(np.stack([r, g, b], 1)).view(np.uint32))
+    np.testing.assert_array_equal(got.view(np.uint32), torch_scenes.pack_rgb(np.stack([r, g, b], 1)).view(np.uint32))
 
 
 @pytest.mark.parametrize("compiler", ["/nonexistent/bin/g++", "false"])
@@ -606,14 +606,14 @@ def test_config_driven_two_sensor_setup(tmp_path, rng):
 
 
 def test_chip_smoke_service_settings_are_the_yaml():
-    """chip_smoke's service runs on the deployed config and its extras as
+    """The card tests' service runs on the deployed config and its extras as
     literals (the card's machine has no PyYAML): they equal the YAML's, and
     a service built from them is built as from_config builds it."""
     cfg, extras = load_config_with_extras(os.path.join(REPO, "configs", "core_param.yaml"))
-    assert cfg == chip_smoke.deployed_config()
-    assert extras == chip_smoke.DEPLOYED_EXTRAS
+    assert cfg == torch_scenes.deployed_config()
+    assert extras == torch_scenes.DEPLOYED_EXTRAS
     a = MappingService.from_config(os.path.join(REPO, "configs", "core_param.yaml"), device="cpu")
-    b = MappingService.from_settings(chip_smoke.deployed_config(), chip_smoke.DEPLOYED_EXTRAS, device="cpu")
+    b = MappingService.from_settings(torch_scenes.deployed_config(), torch_scenes.DEPLOYED_EXTRAS, device="cpu")
     for attr in ("_variance_period", "_time_period", "_pose_alpha", "publish_points_enabled", "subscribers"):
         assert getattr(a, attr) == getattr(b, attr), attr
     assert a._pose_alpha == 0.2 and a._time_period == pytest.approx(0.1)

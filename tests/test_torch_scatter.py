@@ -103,8 +103,7 @@ def test_wide_stream_set(rng):
     vals = rng.standard_normal((k, n)).astype(np.float32)
     mask = np.ones(n, bool)
     out = tscatter.scatter_add_streams_2d(
-        h, w, torch.from_numpy(rows * w + cols), [torch.from_numpy(v) for v in vals],
-        torch.from_numpy(mask), (False,) * k,
+        h, w, torch.from_numpy(rows * w + cols), [torch.from_numpy(v) for v in vals], torch.from_numpy(mask),
     ).numpy()
     jout = np.asarray(
         mxu_scatter_add_2d(jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(vals.T), h, w, (False,) * k, interpret=True)
@@ -147,7 +146,7 @@ def test_mask_convention_and_out_of_range(rng):
     v1 = rng.standard_normal(400).astype(np.float32)
     v2 = (rng.random(400) > 0.5).astype(np.float32)
     t_out = tscatter.scatter_add_streams_2d(
-        h, w, torch.from_numpy(flat), [torch.from_numpy(v1), torch.from_numpy(v2)], torch.from_numpy(m), (False, True)
+        h, w, torch.from_numpy(flat), [torch.from_numpy(v1), torch.from_numpy(v2)], torch.from_numpy(m)
     ).numpy()
     j_out = np.asarray(
         jscatter.scatter_add_streams_2d(h, w, jnp.asarray(flat), [jnp.asarray(v1), jnp.asarray(v2)], jnp.asarray(m), (False, True))

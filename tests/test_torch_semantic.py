@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import pack_class as np_encode_max
-from chip_smoke import pack_rgb as np_pack_rgb
+from tests.torch_scenes import pack_class as np_encode_max
+from tests.torch_scenes import pack_rgb as np_pack_rgb
 from elevation_mapping_cupy_tpu import MapConfig as JaxConfig
 from elevation_mapping_cupy_tpu import core as jcore
 from elevation_mapping_cupy_tpu import init_state as jinit_state
@@ -363,7 +363,7 @@ def test_core_update_pointcloud_semantic_matches_jax():
     association pass) with a move_to between them: every state field
     against JAX, layers at the 1e-4 of the geometric tests, packed colours
     and ids bit for bit."""
-    import chip_smoke
+    from tests import torch_scenes
 
     rng = np.random.default_rng(32)
     table = MIXED_TABLE + (("max_.*", "class_max"), ("default", "class_average"))
@@ -374,8 +374,8 @@ def test_core_update_pointcloud_semantic_matches_jax():
     js, ts = jinit_state(jcfg), init_state(cfg, "cpu")
     jw, tw = jdefault_weights(), default_weights()
     for u in range(2):
-        R, t, pos = chip_smoke.robot_pose(5 * u)
-        pts = chip_smoke.scene_cloud(rng, N_POINTS, R, t, r_max=2.5)
+        R, t, pos = torch_scenes.robot_pose(5 * u)
+        pts = torch_scenes.scene_cloud(rng, N_POINTS, R, t, r_max=2.5)
         feats = _mixed_features(rng, N_POINTS, N_POINTS)
         enc = np_encode_max(rng.uniform(0.2, 1, N_POINTS).astype(np.float32), rng.integers(1, 6, N_POINTS).astype(np.uint32))
         cloud = np.zeros((4096, 9), np.float32)

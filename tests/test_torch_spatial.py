@@ -239,7 +239,7 @@ def _run_case(name: str, inp: dict, rank: int) -> dict:
     mesh = make_mesh(shape, names)
     if kind == "scatter":
         for h, w in a["shapes"]:
-            args = (t(inp[f"idx{h}"]), [t(inp[f"v0_{h}"]), t(inp[f"v1_{h}"])], t(inp[f"mask{h}"]), (False, True))
+            args = (t(inp[f"idx{h}"]), [t(inp[f"v0_{h}"]), t(inp[f"v1_{h}"])], t(inp[f"mask{h}"]))
             got = sharded_scatter_add_streams_2d(h, w, *args, mesh, axis, col_axis)
             with sharded_scatter_ctx(mesh, axis, col_axis):
                 routed = sc.scatter_add_streams_2d(h, w, *args)
