@@ -29,7 +29,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              recency gate: the robot's update (R 355, with and without the
              min-slope pyramid) and datagen's step (B = 8 and 64, R 72);
              channels 0 and 3-6 bit for bit, 1 and 2 within 1e-5 of
-             max(1, |plain|). K2 (``exact_march``) on the robot's map of 22
+             max(1, |plain|). D3 (``polar_scan``) bit for bit on the
+             cube K1 bins in the same updates (robot, B = 8 and 64). K2 (``exact_march``) on the robot's map of 22
              updates, aged, for 131072 and 1048576 rays, gate on and off
              (the same on the map before it is aged: the gated march against
              the flat one on a fresh map); hit counts, upper bounds and
@@ -45,7 +46,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              datagen's B = 64 and of B = 8 maps of 100000 points on the
              default map (after one warm-up step). The same inputs through
              the CPU port: every layer within 1e-4 on 99.9 % of cells. Each
-             path must launch K1 three times, D1 and D2 once and K2 never.
+             path must launch K1 three times, D1, D2 and D3 once and K2 never.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
@@ -306,12 +307,13 @@ def phase_dilation(cfg) -> list:
     ]
 
 
-def polar_evaluation_inputs(cfg, b: int, n_points: int) -> tuple:
-    """The polar evaluation's arguments as an update hands them over, on
+def polar_inputs(cfg, b: int, n_points: int) -> tuple:
+    """The polar cleanup's kernel arguments as an update hands them over, on
     maps aged past the recency gate after two updates, so that cells can be
     hit, lose validity and take upper bounds: b = 1 is the robot's map of
     the smoke scene (poses 0 to 2, then 3), b > 1 datagen's batch of
-    ``make_batch_clouds`` terrains."""
+    ``make_batch_clouds`` terrains. Returns (the cube the scans take, the
+    evaluation's arguments), both of the last update."""
     from elevation_mapping_cupy_torch import core
     from elevation_mapping_cupy_torch.mapper import ElevationMap
     from elevation_mapping_cupy_torch.nn.traversability import default_weights
@@ -319,12 +321,23 @@ def polar_evaluation_inputs(cfg, b: int, n_points: int) -> tuple:
     from elevation_mapping_cupy_torch.parallel import batched_update, init_batch
     from elevation_mapping_cupy_torch.runtime import datagen
 
-    calls = []
-    real = raycast.polar_evaluate
+    cubes, calls = [], []
+    real_scan, real_evaluate = raycast.polar_scan, raycast.polar_evaluate
 
-    def spy(*args):
+    def scan_spy(c):
+        cubes.append(c.clone())
+        return real_scan(c)
+
+    def evaluate_spy(*args):
         calls.append(args)
-        return real(*args)
+        return real_evaluate(*args)
+
+    def spied(fn):
+        raycast.polar_scan, raycast.polar_evaluate = scan_spy, evaluate_spy
+        try:
+            return fn()
+        finally:
+            raycast.polar_scan, raycast.polar_evaluate = real_scan, real_evaluate
 
     if b == 1:
         em = ElevationMap(cfg, device="cuda")
@@ -333,13 +346,11 @@ def polar_evaluation_inputs(cfg, b: int, n_points: int) -> tuple:
             if k == 3:
                 for _ in range(7):
                     em.state = core.update_time(em.state, cfg)
-                raycast.polar_evaluate = spy
             R, t, pos = scenes.robot_pose(k)
             em.move_to(pos, R)
-            try:
-                em.input_pointcloud(scenes.scene_cloud(rng, n_points, R, t), ["x", "y", "z"], R, t, 0.0, 0.0)
-            finally:
-                raycast.polar_evaluate = real
+            pts = scenes.scene_cloud(rng, n_points, R, t)
+            update = lambda: em.input_pointcloud(pts, ["x", "y", "z"], R, t, 0.0, 0.0)  # noqa: E731
+            spied(update) if k == 3 else update()
     else:
         cfg = cfg.replace(max_points=n_points)
         mask = torch.ones((b, n_points), dtype=torch.bool, device="cuda")
@@ -351,16 +362,42 @@ def polar_evaluation_inputs(cfg, b: int, n_points: int) -> tuple:
             if k == 2:
                 for _ in range(7):
                     states = core.update_time(states, cfg)
-                raycast.polar_evaluate = spy
             pts, t, _ = datagen.make_batch_clouds(datagen.make_generator(k, "cuda"), b, cfg.cell_n, cfg.resolution,
                                                   n_points)
-            try:
-                states = batched_update(states, pts, mask, R, t, z, z, weights, cfg)
-            finally:
-                raycast.polar_evaluate = real
-    if len(calls) != 1:
-        raise AssertionError(f"polar evaluation inputs: {len(calls)} evaluations in one update")
-    return calls[0]
+            step = lambda: batched_update(states, pts, mask, R, t, z, z, weights, cfg)  # noqa: E731
+            states = spied(step) if k == 2 else step()
+    if len(cubes) != 1 or len(calls) != 1:
+        raise AssertionError(f"polar inputs: {len(cubes)} scans and {len(calls)} evaluations in one update")
+    return cubes[0], calls[0]
+
+
+def check_scan_case(label: str, cubes) -> dict:
+    """The polar cube's scan kernel against its plain version on the card,
+    bit for bit, one launch a call; then its time beside the plain
+    version's and its bound (two passes, each reading and writing B A R 2S
+    floats)."""
+    from elevation_mapping_cupy_torch.ops import raycast
+
+    b, _, A, R, S = cubes.shape
+    before = raycast.SCAN_KERNEL.launches
+    got = raycast.polar_scan(cubes)
+    torch.cuda.synchronize()
+    if raycast.SCAN_KERNEL.launches != before + 1:
+        raise AssertionError(f"polar scan {label}: {raycast.SCAN_KERNEL.launches - before} launches in one call")
+    if not torch.equal(got.view(torch.int32), raycast._polar_scan(cubes).view(torch.int32)):
+        raise AssertionError(f"polar scan {label}: differs from the plain version")
+    res = {"case": label, "B": b, "A": A, "R": R, "S": S, "rays": float(cubes[:, 0].sum()),
+           "bound_ms": 4 * b * A * R * 2 * S * 4 / HBM_BYTES_PER_S * 1e3}
+    iters = 10 if b > 8 else 20
+    res["kernel_ms"] = _events_ms(lambda: raycast.polar_scan(cubes), iters)
+    res["device_ms"], res["device_ops_ms"] = _device_ms(lambda: raycast.polar_scan(cubes), iters)
+    res["device_ms_per_map"] = res["device_ms"] / b
+    res["share_of_bound"] = res["bound_ms"] / res["device_ms"]
+    res["plain_ms"] = _events_ms(lambda: raycast._polar_scan(cubes), iters)
+    res["plain_ms_per_map"] = res["plain_ms"] / b
+    res["library_ms"] = None  # no one PyTorch call computes both scans
+    log("polar scan check: " + json.dumps(res))
+    return res
 
 
 def check_polar_case(label: str, args) -> dict:
@@ -402,19 +439,25 @@ def check_polar_case(label: str, args) -> dict:
     return res
 
 
-def phase_polar(cfg) -> list:
-    """The polar evaluation kernel at the robot's shapes (B = 1, R 355) and
-    datagen's (B = 8 and 64, R 72), each as an update hands them over."""
+def phase_polar(cfg) -> tuple:
+    """The polar cube's scan kernel and the polar evaluation kernel at the
+    robot's shapes (B = 1, R 355) and datagen's (B = 8 and 64, R 72), each
+    as an update hands them over; the evaluation also with the min-slope
+    pyramid. Returns (scan cases, evaluation cases)."""
     from elevation_mapping_cupy_torch import MapConfig
 
     default = MapConfig()
-    return [
-        check_polar_case("robot update", polar_evaluation_inputs(cfg, 1, MAIN_POINTS)),
-        check_polar_case("datagen step B=8", polar_evaluation_inputs(default, 8, BATCH_POINTS)),
-        check_polar_case("datagen step B=64", polar_evaluation_inputs(default, 64, BATCH_POINTS)),
-        check_polar_case("robot update, pyramid",
-                         polar_evaluation_inputs(cfg.replace(raycast_slope_from_bins=False), 1, MAIN_POINTS)),
-    ]
+    scans, evaluations = [], []
+    for label, args in (("robot update", (cfg, 1, MAIN_POINTS)),
+                        ("datagen step B=8", (default, 8, BATCH_POINTS)),
+                        ("datagen step B=64", (default, 64, BATCH_POINTS))):
+        cubes, evaluation = polar_inputs(*args)
+        scans.append(check_scan_case(label, cubes))
+        del cubes
+        evaluations.append(check_polar_case(label, evaluation))
+    evaluations.append(check_polar_case(
+        "robot update, pyramid", polar_inputs(cfg.replace(raycast_slope_from_bins=False), 1, MAIN_POINTS)[1]))
+    return scans, evaluations
 
 
 def check_march_case(state, cfg, rng, n_rays: int, gated: bool, aged: bool = True) -> dict:
@@ -500,7 +543,8 @@ def phase_march(cfg) -> tuple:
     return cases, fresh
 
 
-PATH_LAUNCHES = {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1, "polar_evaluate": 1}
+PATH_LAUNCHES = {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1, "polar_evaluate": 1,
+                 "polar_scan": 1}
 
 
 def _counted(regs, tag: str, fn):
@@ -594,15 +638,15 @@ def _timed_cases(cases: list, keys) -> list:
 
 
 def kernels_line(scatter_cases: list, march_cases: dict, dilation_cases: list, polar_cases: list,
-                 paths: dict) -> dict:
+                 scan_cases: list, paths: dict) -> dict:
     """One entry per kernel. K1's numbers are those of one robot update's
     three launches at the main path's cloud size (error counting, fusion,
     cube), summed, with every timed case under ``cases``; its
     ``max_abs_err`` is the largest of them. K2's are those of the gated march
-    of MAIN_POINTS rays (the router's first choice). The dilation's and the
-    polar evaluation's are those of the robot's update, with every case
-    under ``cases``. ``launches`` is the kernel's launches in the robot's
-    counted frame (the main path), ``launches_by_path`` those in each path
+    of MAIN_POINTS rays (the router's first choice). The dilation's, the
+    polar evaluation's and the polar scan's are those of the robot's
+    update, with every case under ``cases``. ``launches`` is the kernel's
+    launches in the robot's counted frame (the main path), ``launches_by_path`` those in each path
     of the paths phase, each counted from 0. ``ms`` is the call as its caller pays for it, ``device_ms`` the device's
     own time."""
     march = march_cases[(MAIN_POINTS, True)]
@@ -635,6 +679,9 @@ def kernels_line(scatter_cases: list, march_cases: dict, dilation_cases: list, p
               max(c["max_rel_err"] for c in polar_cases), polar_cases[0],
               _timed_cases(polar_cases, ("case", "B", "R", "S", "pyramid", "kernel_ms", "device_ms",
                                          "device_ms_per_map", "bound_ms", "plain_ms", "plain_ms_per_map"))),
+        entry("polar_scan", "polar_scan.cu", None, "ops/raycast.py::_polar_scan", 0.0, scan_cases[0],
+              _timed_cases(scan_cases, ("case", "B", "R", "S", "kernel_ms", "device_ms", "device_ms_per_map",
+                                        "bound_ms", "plain_ms", "plain_ms_per_map"))),
     ]}
 
 
@@ -655,17 +702,17 @@ def main(argv=None) -> int:
     cfg = scenes.deployed_config()
     scatter_cases = timed("kernels (scatter)", phase_scatter, cfg)
     dilation_cases = timed("kernels (dilation)", phase_dilation, cfg)
-    polar_cases = timed("kernels (polar evaluation)", phase_polar, cfg)
+    scan_cases, polar_cases = timed("kernels (polar scan and evaluation)", phase_polar, cfg)
     march_cases, fresh_cases = timed("kernels (exact march)", phase_march, cfg)
     paths = timed("paths", phase_paths, regs)
     log(f"total: {time.perf_counter() - t0:.1f} s")
-    line = kernels_line(scatter_cases, march_cases, dilation_cases, polar_cases, paths)
+    line = kernels_line(scatter_cases, march_cases, dilation_cases, polar_cases, scan_cases, paths)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({
                 "card": smi, "kernels_line": line, "scatter_cases": scatter_cases, "dilation_cases": dilation_cases,
-                "polar_cases": polar_cases, "march_cases": list(march_cases.values()) + list(fresh_cases.values()),
-                "paths": paths,
+                "polar_cases": polar_cases, "scan_cases": scan_cases,
+                "march_cases": list(march_cases.values()) + list(fresh_cases.values()), "paths": paths,
             }, f, indent=1)
     print(json.dumps(line))
     print(smi)

@@ -161,4 +161,5 @@ def registered_kernels() -> Dict[str, CudaKernel]:
     """Every kernel of the package, by name (imports the modules that own them)."""
     from .ops import cuda_march, cuda_scatter, raycast, stencil
 
-    return {k.name: k for k in (cuda_scatter.KERNEL, cuda_march.KERNEL, stencil.KERNEL, raycast.KERNEL)}
+    return {k.name: k for k in (cuda_scatter.KERNEL, cuda_march.KERNEL, stencil.KERNEL, raycast.KERNEL,
+                                raycast.SCAN_KERNEL)}

@@ -8,9 +8,11 @@ The three exact implementations are one kernel here, K2
 (``ops/cuda_march.py``): ``scan`` and ``flat`` are the same launch without a
 gate (every ray's steps end where the endpoint test starts to reject every
 sample, which the JAX scan walks to no effect), ``gated`` has the segment
-gate. On the card the polar cleanup's per-cell evaluation is a kernel too,
-``csrc/polar_evaluate.cu`` (:func:`polar_evaluate`, ``KERNEL``), with
-``_polar_evaluate`` as its plain version.
+gate. On the card the polar cleanup's cube scans and its per-cell
+evaluation are kernels too, ``csrc/polar_scan.cu`` (:func:`polar_scan`,
+``SCAN_KERNEL``) and ``csrc/polar_evaluate.cu`` (:func:`polar_evaluate`,
+``KERNEL``), with ``_polar_scan`` and ``_polar_evaluate`` as their plain
+versions.
 
 Race resolutions R1 (snapshot reads) and R3 (min-height upper-bound write)
 per tests/golden/reference_numpy.py.
@@ -45,6 +47,9 @@ __all__ = [
     "polar_evaluate",
     "launch_polar_evaluate",
     "KERNEL",
+    "polar_scan",
+    "launch_polar_scan",
+    "SCAN_KERNEL",
     "resolve_raycast_mode",
     "resolve_exact_impl",
     "exact_precompute",
@@ -364,7 +369,8 @@ def visibility_cleanup_polar(
     azimuth axis range-queryable, and each map cell answers its penetration
     query with a few row gathers plus a reduction over the S elevation
     buckets. The two cube scatter-adds are one 2-stream launch of kernel K1;
-    on the card the per-cell evaluation is one launch of
+    on the card the cube's scans are one call of ``csrc/polar_scan.cu``
+    (:func:`polar_scan`) and the per-cell evaluation one launch of
     ``csrc/polar_evaluate.cu`` (:func:`polar_evaluate`).
 
     A batch of maps (leading axis on every argument) bins all its rays in
@@ -417,14 +423,8 @@ def visibility_cleanup_polar(
         if not use_bins_slope:
             slope_cube = scatter.scatter_min(A * R * S, cube_idx, slope, active, math.inf).reshape(nb, A, R, S)
 
-        # suffix scans along R: "rays with r_act >= r", cnt and inv packed into
-        # one (B, A, R, 2S) tensor
-        packed = torch.cat([torch.flip(torch.cumsum(torch.flip(cubes[:, i], [2]), dim=2), [2]) for i in range(2)],
-                           dim=-1)
+        pref = polar_scan(cubes)                              # (B, A, R, 2S)
         del cubes
-        # azimuth prefix for range sums
-        pref = torch.cumsum(packed, dim=1)                    # (B, A, R, 2S)
-        del packed
         total = pref[:, -1]                                   # (B, R, 2S)
 
         # ring min-pyramid over azimuth: level l = window [a, a + 2^l)
@@ -444,6 +444,60 @@ def visibility_cleanup_polar(
             (A, R, S, n_levels, block), cfg,
         )
     return out[0] if single else out
+
+
+SCAN_KERNEL = CudaKernel(
+    "polar_scan.cu", "polar_scan", [ctypes.c_void_p] * 2 + [ctypes.c_int32] * 4 + [ctypes.c_void_p]
+)
+
+
+def polar_scan(cubes: torch.Tensor) -> torch.Tensor:
+    """The scans of :func:`visibility_cleanup_polar`'s cube: K1's (B, 2, A,
+    R, S) streams (ray counts, sums of 1/length) summed along R from the far
+    end ("rays still active at radius >= r"), packed into (B, A, R, 2S)
+    (counts, then sums) and summed along A from 0 for range queries.
+
+    A CUDA tensor goes to the kernel (:func:`launch_polar_scan`), one
+    launch for the whole batch; a CPU tensor to :func:`_polar_scan`."""
+    if on_card(cubes, "the polar cube's scans"):
+        return launch_polar_scan(cubes)
+    return _polar_scan(cubes)
+
+
+def _check_scan(cubes: torch.Tensor) -> None:
+    """Refuses a cube that neither version of the scans takes."""
+    if cubes.dim() != 5 or cubes.shape[1] != 2:
+        raise ValueError(f"the polar cube must be (B, 2, A, R, S); got {tuple(cubes.shape)}")
+    if cubes.dtype != torch.float32:
+        raise TypeError(f"the polar cube must be float32; got {cubes.dtype}")
+
+
+def launch_polar_scan(cubes: torch.Tensor) -> torch.Tensor:
+    """:func:`polar_scan` as one call of ``csrc/polar_scan.cu`` on the
+    current stream (two passes: along R, then along A in place). Takes a
+    contiguous float32 cube; refuses anything else, and a cube not on a
+    card, before the kernel is built."""
+    _check_scan(cubes)
+    if not cubes.is_contiguous():
+        raise ValueError("the polar scan kernel needs a contiguous cube")
+    nb, _, A, R, S = cubes.shape
+    pref = torch.empty((nb, A, R, 2 * S), dtype=cubes.dtype, device=cubes.device)
+    if pref.numel() == 0:
+        return pref
+    SCAN_KERNEL.launch(cubes.device, cubes.data_ptr(), pref.data_ptr(), nb, A, R, S)
+    return pref
+
+
+def _polar_scan(cubes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`polar_scan`, which the tests hold to
+    the JAX package and the kernel to on the card."""
+    _check_scan(cubes)
+    # suffix scans along R: "rays with r_act >= r", cnt and inv packed into
+    # one (B, A, R, 2S) tensor
+    packed = torch.cat([torch.flip(torch.cumsum(torch.flip(cubes[:, i], [2]), dim=2), [2]) for i in range(2)],
+                       dim=-1)
+    # azimuth prefix for range sums
+    return torch.cumsum(packed, dim=1)
 
 
 # bytes of one (maps x cells x S) float32 tensor of the plain per-cell

@@ -1,5 +1,5 @@
 """The PyTorch port on a CUDA card against its plain PyTorch versions and the
-CPU: the kernels K1, K2, D1 and D2 and every path through them (updates,
+CPU: the kernels K1, K2, D1, D2 and D3 and every path through them (updates,
 the exact march and replay, the semantic fusions, the image path,
 post-processing, plane segmentation, batches of maps, sharded worlds, the
 runtime service, the sensor sidecar and the DINO ViT, the profile entry
@@ -40,11 +40,13 @@ def _counts() -> dict:
 
 def _launched(before: dict, k1: int, k2: int, d1: int, d2: int, times: int = 1) -> None:
     """Each kernel's launches since ``before``: K1, K2, D1 and D2 per call,
-    over ``times`` calls."""
+    over ``times`` calls. D3 (the polar cube's scans) runs wherever D2
+    does, once per polar cleanup, so it takes D2's count."""
     torch.cuda.synchronize()
     now = _counts()
     got = {name: now[name] - before[name] for name in now}
-    want = {"scatter_add_streams": k1, "exact_march": k2, "dilation_fill": d1, "polar_evaluate": d2}
+    want = {"scatter_add_streams": k1, "exact_march": k2, "dilation_fill": d1, "polar_evaluate": d2,
+            "polar_scan": d2}
     assert got == {name: n * times for name, n in want.items()}, got
 
 
@@ -392,31 +394,39 @@ def test_polar_kernel_on_blocks_of_a_sharded_map(card, monkeypatch, rows, cols, 
 
 
 def test_polar_kernel_launches_once_per_update_and_per_step(card):
-    """KERNEL.launches rises by one per polar update (one per
+    """KERNEL.launches (D2) rises by one per polar update (one per
     ``raycast.polar_evaluate`` span) and per batched step at any B, and not
-    on the exact path."""
+    on the exact path; so does SCAN_KERNEL.launches (D3, one per
+    ``raycast.polar_cube`` span), which also rises by one per call of its
+    wrapper, whose two passes are one call."""
     import time
 
     from elevation_mapping_cupy_torch import tracing
     from elevation_mapping_cupy_torch.nn.traversability import DEFAULT_WEIGHT_FILE, load_weights_npz
     from elevation_mapping_cupy_torch.parallel import batched_update, init_batch
 
+    before = raycast.SCAN_KERNEL.launches
+    for _ in range(3):
+        raycast.polar_scan(torch.ones((2, 2, 16, 9, 12), device=card))
+    assert raycast.SCAN_KERNEL.launches == before + 3
     cfg = MapConfig(**SMALL_KW, raycast_mode="polar")
     w = load_weights_npz(DEFAULT_WEIGHT_FILE).to(card)
     rng = np.random.default_rng(6)
+    kernels_ = (raycast.KERNEL, raycast.SCAN_KERNEL)
     counts = {}
     for mode in ("polar", "exact"):
         em = ElevationMap(cfg.replace(raycast_mode=mode))
         t0 = time.perf_counter_ns()
-        before = raycast.KERNEL.launches
+        before = [k.launches for k in kernels_]
         for k in range(3):
             R, t, pos = torch_scenes.robot_pose(4 * k)
             em.move_to(pos, R)
             em.input_pointcloud(torch_scenes.scene_cloud(rng, 6000, R, t, r_max=2.5), ["x", "y", "z"], R, t, 0.0, 0.0)
         torch.cuda.synchronize()
-        spans = [s for s in tracing.spans(t0) if s.name == "raycast.polar_evaluate"]
-        counts[mode] = (raycast.KERNEL.launches - before, len(spans))
-    assert counts == {"polar": (3, 3), "exact": (0, 0)}
+        spans = [len([s for s in tracing.spans(t0) if s.name == name])
+                 for name in ("raycast.polar_evaluate", "raycast.polar_cube")]
+        counts[mode] = [k.launches - n for k, n in zip(kernels_, before)] + spans
+    assert counts == {"polar": [3, 3, 3, 3], "exact": [0, 0, 0, 0]}
     for b in (1, 5):
         states = init_batch(cfg, b, card)
         pts = torch.from_numpy(torch_scenes.scene_cloud(rng, 6000, *torch_scenes.robot_pose(0)[:2])).to(card)
@@ -425,10 +435,119 @@ def test_polar_kernel_launches_once_per_update_and_per_step(card):
         R = torch.eye(3, device=card).expand(b, 3, 3).contiguous()
         t = torch.tensor([0.0, 0.0, 0.7], device=card).expand(b, 3).contiguous()
         z = torch.zeros(b, device=card)
-        before = raycast.KERNEL.launches
+        before = [k.launches for k in kernels_]
         for _ in range(2):
             states = batched_update(states, pts, mask, R, t, z, z, w, cfg)
-        assert raycast.KERNEL.launches == before + 2
+        assert [k.launches - n for k, n in zip(kernels_, before)] == [2, 2]
+
+
+# ---------------------------------------------------------------------------
+# the polar cube's scans (csrc/polar_scan.cu)
+# ---------------------------------------------------------------------------
+
+_POLAR_SCAN = raycast.polar_scan
+
+
+def _capture_cubes(monkeypatch) -> list:
+    """Records a copy of the cube of every ``raycast.polar_scan`` call; each
+    call goes on to the kernel."""
+    cubes = []
+
+    def spy(c):
+        cubes.append(c.clone())
+        return _POLAR_SCAN(c)
+
+    monkeypatch.setattr(raycast, "polar_scan", spy)
+    return cubes
+
+
+def _assert_scan_equal(cubes) -> torch.Tensor:
+    """One call of the kernel against the plain version on the card, bit for
+    bit. Returns the kernel's output."""
+    before = raycast.SCAN_KERNEL.launches
+    got = _POLAR_SCAN(cubes)
+    assert raycast.SCAN_KERNEL.launches == before + 1
+    want = raycast._polar_scan(cubes)
+    assert got.shape == want.shape and torch.equal(_float_bits(got), _float_bits(want))
+    return got
+
+
+def test_polar_scan_kernel_matches_plain_version_on_the_robot_cube(card, monkeypatch):
+    """B = 1 at the deployed config (A 512, R 355, S 128), on the cube K1
+    bins from one update of the smoke scene's 131072 points."""
+    cubes = _capture_cubes(monkeypatch)
+    em = ElevationMap(torch_scenes.deployed_config())
+    R, t, pos = torch_scenes.robot_pose(0)
+    em.move_to(pos, R)
+    em.input_pointcloud(torch_scenes.scene_cloud(np.random.default_rng(9), torch_scenes.MAIN_POINTS, R, t),
+                        ["x", "y", "z"], R, t, 0.0, 0.0)
+    assert len(cubes) == 1 and tuple(cubes[0].shape) == (1, 2, 512, 355, 128)
+    assert float(cubes[0][:, 0].sum()) > 0.5 * torch_scenes.MAIN_POINTS
+    _assert_scan_equal(cubes[0])
+
+
+@pytest.mark.parametrize("b", [8, 64])
+def test_polar_scan_kernel_matches_plain_version_on_datagen_batches(card, monkeypatch, b):
+    """B = 8 and 64 maps at the default MapConfig (R 72), on the cubes K1
+    bins from one batched step of make_batch_clouds' terrains."""
+    from elevation_mapping_cupy_torch.nn.traversability import default_weights
+    from elevation_mapping_cupy_torch.parallel import batched_update, init_batch
+    from elevation_mapping_cupy_torch.runtime import datagen
+
+    n_points = 100_000
+    cfg = MapConfig(max_points=n_points)
+    pts, t, _ = datagen.make_batch_clouds(datagen.make_generator(3, card), b, cfg.cell_n, cfg.resolution, n_points)
+    mask = torch.ones((b, n_points), dtype=torch.bool, device=card)
+    R = torch.eye(3, device=card).expand(b, 3, 3).contiguous()
+    z = torch.zeros(b, device=card)
+    cubes = _capture_cubes(monkeypatch)
+    batched_update(init_batch(cfg, b, card), pts, mask, R, t, z, z, default_weights().to(card), cfg)
+    assert len(cubes) == 1 and tuple(cubes[0].shape) == (b, 2, 512, 72, 128)
+    assert bool((cubes[0][:, 0].flatten(1).sum(1) > 0).all())
+    _assert_scan_equal(cubes[0])
+
+
+@pytest.mark.parametrize("bins", [36, 45])
+def test_polar_scan_kernel_at_elevation_bins_not_a_multiple_of_32(card, monkeypatch, bins):
+    """S = 36 and 45 on the small map's cube of one update."""
+    cubes = _capture_cubes(monkeypatch)
+    em = ElevationMap(MapConfig(**SMALL_KW, raycast_mode="polar", raycast_elevation_bins=bins))
+    R, t, pos = torch_scenes.robot_pose(0)
+    em.move_to(pos, R)
+    em.input_pointcloud(torch_scenes.scene_cloud(np.random.default_rng(2), 6000, R, t, r_max=2.5), ["x", "y", "z"],
+                        R, t, 0.0, 0.0)
+    assert len(cubes) == 1 and cubes[0].shape[-1] == bins and float(cubes[0].sum()) > 0
+    _assert_scan_equal(cubes[0])
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 5, 45), (2, 17, 1, 7), (1, 1, 33, 2), (5, 16, 16, 32)])
+def test_polar_scan_kernel_on_random_cubes(card, shape):
+    """Sums of arbitrary floats at shapes no config gives (A, R and S off
+    the kernel's chunk of 8 and a warp's 32): any other order of the adds
+    would show. (At B = A = S = 1 the plain version's cumsum along R takes
+    cub's parallel scan, which adds in another order.)"""
+    b, A, R, S = shape
+    g = torch.Generator(device=card).manual_seed(sum(shape))
+    _assert_scan_equal(torch.rand((b, 2, A, R, S), generator=g, device=card) * 3.7)
+
+
+def test_polar_scan_kernel_on_empty_and_single_ray_cubes(card):
+    """An all-zero cube gives zeros; a cube of one ray in bin (a, r, s)
+    gives its count and 1/length at every azimuth from a on and every radius
+    up to r, and zero elsewhere."""
+    A, R, S = 512, 72, 128
+    zero = torch.zeros((2, 2, A, R, S), device=card)
+    assert not bool(_assert_scan_equal(zero).any())
+    a, r, s = 300, 40, 77
+    one = torch.zeros((1, 2, A, R, S), device=card)
+    one[0, 0, a, r, s] = 1.0
+    one[0, 1, a, r, s] = 1.0 / 1.37
+    got = _assert_scan_equal(one)
+    want = torch.zeros((1, A, R, 2 * S), device=card)
+    want[0, a:, :r + 1, s] = 1.0
+    want[0, a:, :r + 1, S + s] = 1.0 / 1.37
+    assert torch.equal(got, want)
+    assert _POLAR_SCAN(torch.zeros((0, 2, A, R, S), device=card)).shape == (0, A, R, 2 * S)
 
 
 def test_update_on_card_matches_cpu(card):
@@ -1437,8 +1556,8 @@ def test_resolve_model_propagates_card_errors(card):
 # ---------------------------------------------------------------------------
 
 # per example, K1's launches of its run as it ships (every example resolves
-# to the polar cleanup, so K2 never runs) and D1's and D2's (one per update
-# or batched step, per process for the sharded world; none per plane
+# to the polar cleanup, so K2 never runs) and D1's, D2's and D3's (one per
+# update or batched step, per process for the sharded world; none per plane
 # decomposition); and regular expressions its main's output must match
 EXAMPLES = {
     "plane_decomposition_demo": (2 * 6, 0, [r"^regions: ([2-9]|\d\d+)$", r"convex 12-gon"]),
@@ -1553,7 +1672,8 @@ def test_example_on_card_matches_cpu(card, tmp_path, name):
             with open(tmp_path / f"rank{rank}.json") as f:
                 rep = json.load(f)
             torch_scenes.check_launches(f"rank {rank}", rep["launches"], 1, {
-                "scatter_add_streams": k1, "exact_march": 0, "dilation_fill": d12, "polar_evaluate": d12})
+                "scatter_add_streams": k1, "exact_march": 0, "dilation_fill": d12, "polar_evaluate": d12,
+                "polar_scan": d12})
         from elevation_mapping_cupy_torch.nn.traversability import default_weights
         from elevation_mapping_cupy_torch.state import init_state
 

@@ -90,9 +90,9 @@ SPATIAL_TIMEOUT_S = 300
 SPATIAL_TOL = 1e-5
 SPATIAL_MOVE = {"exact1024": (0.5, -0.3, 0.1), "polar1024": (1.0, -0.6, 0.0)}
 SPATIAL_LAUNCHES = {"exact1024": {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1,
-                                  "polar_evaluate": 0},
+                                  "polar_evaluate": 0, "polar_scan": 0},
                     "polar1024": {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1,
-                                  "polar_evaluate": 1}}
+                                  "polar_evaluate": 1, "polar_scan": 1}}
 
 
 def deployed_config():
