@@ -33,8 +33,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              cube K1 bins in the same updates (robot, B = 8 and 64). K2 (``exact_march``) on the robot's map of 22
              updates, aged, for 131072 and 1048576 rays, gate on and off
              (the same on the map before it is aged: the gated march against
-             the flat one on a fresh map); hit counts, upper bounds and
-             segment counts equal, the decrement within 2e-4.
+             the flat one on a fresh map); then one launch for datagen_exact's
+             B = 64 maps of 100000 rays (70 steps, gated), on fresh maps and
+             on maps of 8 steps aged past the recency gate; hit counts,
+             upper bounds and segment counts equal, the decrement within
+             2e-4.
              Each timed case gives the call's time (CUDA events around the
              wrapper), the device's own (torch.profiler), the plain
              version's, one PyTorch library call's where one computes the
@@ -47,6 +50,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              default map (after one warm-up step). The same inputs through
              the CPU port: every layer within 1e-4 on 99.9 % of cells. Each
              path must launch K1 three times, D1, D2 and D3 once and K2 never.
+             Then one step of 64 maps with the exact cleanup, on maps of 7
+             steps aged past the recency gate, against the CPU port: K1
+             twice, K2 and D1 once, D2 and D3 never.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
@@ -464,10 +470,27 @@ def check_march_case(state, cfg, rng, n_rays: int, gated: bool, aged: bool = Tru
     """K2 against its plain version on the card at one shape; returns the
     measured numbers. On a map that is not ``aged`` past the recency gate no
     cell can be hit, and the march only lowers upper bounds."""
-    from elevation_mapping_cupy_torch.ops import cuda_march as cm
-
     label = f"exact march N={n_rays} {'gated' if gated else 'ungated'}{'' if aged else ' fresh map'}"
     args = scenes.march_inputs(state, cfg, n_rays, rng, gated, pose=MARCH_UPDATES - 1)
+    return march_case(label, cfg, args, gated, aged)
+
+
+def march_bytes(b: int, n: int, n2: int, gate_cells: int) -> int:
+    """K2's compulsory bytes for ``b`` maps of ``n`` rays and ``n2`` cells:
+    per map the pack's 7 values per cell, the points, their validity, t,
+    the gate table (``gate_cells`` floats, 0 without a gate), the three
+    outputs and, with a gate, the two segment counts."""
+    return b * (4 * (7 * n2 + 3 * n + 3 + gate_cells + 3 * n2) + n + (16 if gate_cells else 0))
+
+
+def march_case(label: str, cfg, args, gated: bool, aged: bool, writes_ub: bool = True) -> dict:
+    """K2 on ``args`` (pack, world, valid, t, gate; one map or a batch)
+    against its plain version: hit counts, upper bounds and segment counts
+    equal, the decrement within VALUE_TOL; then its time beside the plain
+    version's and the bound. An ``aged`` case must hit cells, one that
+    ``writes_ub`` must write upper bounds."""
+    from elevation_mapping_cupy_torch.ops import cuda_march as cm
+
     got = cm.exact_march(*args[:4], cfg, args[4])
     work = {}
     want = cm.exact_march_reference(*args[:4], cfg, args[4], work=work)
@@ -482,16 +505,15 @@ def check_march_case(state, cfg, rng, n_rays: int, gated: bool, aged: bool = Tru
     rel = float((diff / want.dec.abs().clamp(min=1.0)).max())
     if not bool(torch.isfinite(got.dec).all()) or rel > scenes.VALUE_TOL:
         raise AssertionError(f"{label}: decrement off by {rel} (relative) > {scenes.VALUE_TOL}")
-    n2, n = cfg.cell_n**2, n_rays
-    nb2 = args[4].table.numel() if gated else 0
-    # the pack's 7 values per cell, the points, their validity, t, the gate
-    # table, the three outputs and the two counts
-    bytes_moved = 4 * (7 * n2 + 3 * n + 3 + nb2 + 3 * n2) + n + (16 if gated else 0)
+    b = args[0].shape[0] if args[0].dim() == 3 else 1
+    n2, n = cfg.cell_n**2, args[1].shape[-2]
+    bytes_moved = march_bytes(b, n, n2, args[4].table.numel() // b if gated else 0)
     ops = sum(MARCH_OPS[key] * c for key, c in work.items())
     bytes_ms, ops_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    counts = got.counts.reshape(-1, 2).sum(0).tolist() if gated else None
     res = {
-        "case": label, "rays": n, "gated": gated, "aged": aged, "work": work,
-        "counts": got.counts.tolist() if gated else None,
+        "case": label, "maps": b, "rays": n, "gated": gated, "aged": aged, "work": work,
+        "counts": counts,
         "hit_cells": int((got.hits > 0).sum()), "hits": int(got.hits.sum()),
         "ub_cells": int(torch.isfinite(got.ubmin).sum()),
         "max_abs_err": float(diff.max()), "max_rel_err": rel,
@@ -504,9 +526,10 @@ def check_march_case(state, cfg, rng, n_rays: int, gated: bool, aged: bool = Tru
         "library_ms": None,
     }
     res["device_ms"], res["device_ops_ms"] = _device_ms(lambda: cm.exact_march(*args[:4], cfg, args[4]), 20)
+    res["device_ms_per_map"] = res["device_ms"] / b
     res["share_of_bound"] = res["bound_ms"] / res["device_ms"]
-    if (aged and res["hits"] == 0) or res["ub_cells"] == 0:
-        raise AssertionError(f"{label}: the case must both hit cells and write upper bounds: {res}")
+    if (aged and res["hits"] == 0) or (writes_ub and res["ub_cells"] == 0):
+        raise AssertionError(f"{label}: the case must hit cells or write upper bounds as it says: {res}")
     log("kernel check: " + json.dumps(res))
     return res
 
@@ -543,20 +566,58 @@ def phase_march(cfg) -> tuple:
     return cases, fresh
 
 
+def cleanup_case(label: str, cfg, snap) -> dict:
+    """The whole exact cleanup of the batch in K2's one launch against its
+    parts composed around K2 on the pack (``scenes.check_exact_cleanup``),
+    and both timed."""
+    from elevation_mapping_cupy_torch.ops import raycast
+    from elevation_mapping_cupy_torch.ops.geometry import Block
+
+    scenes.check_exact_cleanup(cfg, snap, label)
+    whole = Block.whole(cfg.cell_n, cfg.cell_n)
+    one = lambda: raycast.visibility_cleanup_exact(*snap, cfg, with_aux=True)  # noqa: E731
+    parts = lambda: raycast.visibility_cleanup_exact(*snap, cfg, with_aux=True, block=whole)  # noqa: E731
+    res = {"one_launch_ms": _events_ms(one, 20), "composed_ms": _events_ms(parts, 20)}
+    res["one_launch_device_ms"], res["one_launch_device_ops_ms"] = _device_ms(one, 20)
+    res["composed_device_ms"], _ = _device_ms(parts, 20)
+    log("cleanup check: " + json.dumps({"case": label, **res}))
+    return res
+
+
+def phase_march_batch() -> list:
+    """K2 at the cell datagen_exact.b64_ep8's shape: one launch for B = 64
+    maps of BATCH_POINTS rays (70 steps, gated), on fresh maps (the first
+    step of an episode: no cell is old enough to be hit, and at this density
+    no ray crosses an invalid cell, so nothing is written) and on maps of 8
+    steps aged past the recency gate (cells hit, upper bounds written)."""
+    cases = []
+    for steps, aged in ((1, False), (8, True)):
+        cfg, _, _, args, snap = scenes.datagen_exact_step(64, BATCH_POINTS, "cuda", steps=steps, aged=aged)
+        label = f"exact march B=64 N={BATCH_POINTS} gated {'aged, 8 steps' if aged else 'fresh maps'}"
+        cases.append(march_case(label, cfg, args, True, aged, writes_ub=aged))
+        cases[-1]["cleanup"] = cleanup_case(label, cfg, snap)
+        del args, snap
+    return cases
+
+
+# each path's launches of each kernel: a polar update or step, and an
+# exact one
 PATH_LAUNCHES = {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1, "polar_evaluate": 1,
                  "polar_scan": 1}
+EXACT_PATH_LAUNCHES = {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1, "polar_evaluate": 0,
+                       "polar_scan": 0}
 
 
-def _counted(regs, tag: str, fn):
+def _counted(regs, tag: str, fn, want=PATH_LAUNCHES):
     """Runs ``fn`` with every kernel's count at 0 before it; fails unless
-    the path launched each kernel as PATH_LAUNCHES says. Returns the counts
-    and what ``fn`` returned."""
+    the path launched each kernel as ``want`` says. Returns the counts and
+    what ``fn`` returned."""
     for kern in regs.values():
         kern.launches = 0
     out = fn()
     torch.cuda.synchronize()
     launches = {name: kern.launches for name, kern in regs.items()}
-    scenes.check_launches(tag, launches, 1, PATH_LAUNCHES)
+    scenes.check_launches(tag, launches, 1, want)
     return launches, out
 
 
@@ -625,10 +686,29 @@ def datagen_step(regs, b: int) -> dict:
                                                state_to_numpy(states["cpu"]), scenes.CMP_ATOL, scenes.CMP_MIN_SHARE)}
 
 
+def datagen_exact_step(regs, b: int) -> dict:
+    """A step of ``b`` maps of BATCH_POINTS points with the exact cleanup,
+    on maps of 7 steps aged past the recency gate; the same step on the
+    CPU port."""
+    from elevation_mapping_cupy_torch.nn.traversability import default_weights
+    from elevation_mapping_cupy_torch.parallel import batched_update
+    from elevation_mapping_cupy_torch.state import MapState, state_to_numpy
+
+    cfg, args, state, _, _ = scenes.datagen_exact_step(b, BATCH_POINTS, "cuda", steps=8, aged=True)
+    launches, out = _counted(regs, f"datagen exact step B={b}", lambda: batched_update(state, *args),
+                             EXACT_PATH_LAUNCHES)
+    on_cpu = batched_update(MapState(*(x.cpu() for x in state)), *(x.cpu() for x in args[:6]), default_weights(),
+                            cfg)
+    return {"B": b, "points_per_map": BATCH_POINTS, "launches": launches,
+            "cpu_compare": scenes.share_within(f"datagen exact step B={b}", state_to_numpy(out),
+                                               state_to_numpy(on_cpu), scenes.CMP_ATOL, scenes.CMP_MIN_SHARE)}
+
+
 def phase_paths(regs) -> dict:
     paths = {"robot_frame": robot_frame(regs)}
     for b in BATCH_SIZES:
         paths[f"datagen_b{b}_step"] = datagen_step(regs, b)
+    paths["datagen_exact_b64_step"] = datagen_exact_step(regs, 64)
     log("paths: " + json.dumps({k: v["launches"] for k, v in paths.items()}))
     return paths
 
@@ -638,7 +718,7 @@ def _timed_cases(cases: list, keys) -> list:
 
 
 def kernels_line(scatter_cases: list, march_cases: dict, dilation_cases: list, polar_cases: list,
-                 scan_cases: list, paths: dict) -> dict:
+                 scan_cases: list, paths: dict, batch_cases: list) -> dict:
     """One entry per kernel. K1's numbers are those of one robot update's
     three launches at the main path's cloud size (error counting, fusion,
     cube), summed, with every timed case under ``cases``; its
@@ -670,8 +750,8 @@ def kernels_line(scatter_cases: list, march_cases: dict, dilation_cases: list, p
               _timed_cases(scatter_cases, common + ("path",))),
         entry("exact_march", "exact_march.cu", "scripts/probe_pallas_gather.py:38",
               "k_take, k_take2, k_scat, k_smin, k_sort, k_taa, k_taa2, k_take2d",
-              max(c["max_abs_err"] for c in march_cases.values()), march,
-              _timed_cases(march_cases.values(), common + ("bound_by",))),
+              max(c["max_abs_err"] for c in list(march_cases.values()) + batch_cases), march,
+              _timed_cases(list(march_cases.values()) + batch_cases, common + ("bound_by",))),
         entry("dilation_fill", "dilation_fill.cu", None, "ops/stencil.py::dilation_fill_reference (the offset loop)",
               0.0, dilation_cases[0], _timed_cases(dilation_cases, ("case", "B", "size", "kernel_ms", "device_ms",
                                                                     "bound_ms", "plain_ms"))),
@@ -704,15 +784,17 @@ def main(argv=None) -> int:
     dilation_cases = timed("kernels (dilation)", phase_dilation, cfg)
     scan_cases, polar_cases = timed("kernels (polar scan and evaluation)", phase_polar, cfg)
     march_cases, fresh_cases = timed("kernels (exact march)", phase_march, cfg)
+    batch_cases = timed("kernels (exact march, batched)", phase_march_batch)
     paths = timed("paths", phase_paths, regs)
     log(f"total: {time.perf_counter() - t0:.1f} s")
-    line = kernels_line(scatter_cases, march_cases, dilation_cases, polar_cases, scan_cases, paths)
+    line = kernels_line(scatter_cases, march_cases, dilation_cases, polar_cases, scan_cases, paths, batch_cases)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({
                 "card": smi, "kernels_line": line, "scatter_cases": scatter_cases, "dilation_cases": dilation_cases,
                 "polar_cases": polar_cases, "scan_cases": scan_cases,
-                "march_cases": list(march_cases.values()) + list(fresh_cases.values()), "paths": paths,
+                "march_cases": list(march_cases.values()) + list(fresh_cases.values()) + batch_cases,
+                "paths": paths,
             }, f, indent=1)
     print(json.dumps(line))
     print(smi)

@@ -12,10 +12,10 @@ A state may also be a batch of B independent maps (a leading axis on every
 field, ``state.init_batch``), with the same leading axis on its per-map
 inputs: ``update_batch_aux`` updates a batch, and the per-map updates are it
 at B = 1 (one code path); the image path, the motion and maintenance steps
-take either. Every stage of a batched update runs once for all maps, K1
-once per scatter stage for the whole batch (the exact march is one K2 launch
-per map), and nothing is read back to the host (``move_to`` computes each
-map's whole-cell shift on the device).
+take either. Every stage of a batched update runs once for all maps: K1
+once per scatter stage for the whole batch, the exact march as one K2
+launch at any B, and nothing is read back to the host (``move_to`` computes
+each map's whole-cell shift on the device).
 
 The update also runs on one process's block of a spatially sharded map
 (``parallel/spatial.py``): given a ``shard``, the state holds the block
@@ -161,7 +161,7 @@ def update_batch_aux(
     shard=None,
 ) -> Tuple[MapState, Dict[str, torch.Tensor]]:
     """The update of B maps in one pass: every stage over the whole batch,
-    K1 once per scatter stage. Returns the new batched state and the
+    K1 once per scatter stage, the exact march as one K2 launch. Returns the new batched state and the
     cleanup's aux (``gate_survivor_frac``, one per map). The semantic
     fusions (``channels``) run map by map.
 

@@ -77,6 +77,15 @@
 // The entry point initialises the outputs itself (one small kernel on the
 // stream) before the march.
 //
+// A batch of maps. One launch marches the rays of B maps, each on its own
+// pack and gate table from its own sensor position into its own outputs:
+// map b's are b times a map's size from map 0's (64-bit offsets across
+// maps, 32-bit cell indices inside one). The grid's second axis is the map,
+// so a block marches one map's rays and the map's offsets are the same in
+// every thread of it. The card issues blocks in the order of their index,
+// so the maps in flight at a time are a few and their packs stay in L2. At
+// B = 1 the launch is the single map's.
+//
 // Block bounds. The pack and the outputs may cover a block of the map, rows
 // [r0, r0 + bh) and columns [c0, c0 + bw) of the n x n cells (one process's
 // cells of a spatially sharded map). Every sample is computed as on the
@@ -87,6 +96,19 @@
 // window holds no writer of this block and is skipped, as the host builds
 // the window to cover every gate block within one of the block's. With the
 // whole map as block and window the launch is the unblocked one.
+//
+// The cleanup around the march. Given the map's layers (a snapshot), the
+// entry point also builds the march's inputs and applies its outputs, so a
+// cleanup of B whole maps is one call: one kernel writes the pack (the
+// R1 snapshot's cell rows, ops/raycast.py::exact_precompute) and, with a
+// gate, each gate block's max write threshold (a thread block per gate
+// block); a second dilates those maxima over the 3x3 gate blocks into the
+// gate table (ops/raycast.py::exact_gate); after the march a third writes
+// the new layers (validity less the decrement, variance plus the hits'
+// outlier variance, the upper bound where one was written) and each map's
+// segment survivor fraction. Selections, compares and one rounding per
+// float operation, each the plain version's own: the results are the
+// composed path's bit for bit, but for the decrement's atomic sums.
 //
 // Built by elevation_mapping_cupy_torch/kernels.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -394,9 +416,9 @@ __device__ __forceinline__ uint2 march_gated(const Ray& r, int k, int lane,
 }
 
 // dechits <- 0, ubmin <- +inf, counts <- 0, and each cell's reach, in one
-// pass over the outputs' one buffer: floats [0, 4) are the two counts,
-// [4, 4 + 2 n2) the decrement and hit count, then n2 of upper bound and
-// n2 of reach, for the n2 = bh * bw cells of the block.
+// pass over the outputs' one buffer: per map, floats [0, 4) are the two
+// counts, [4, 4 + 2 n2) the decrement and hit count, then n2 of upper bound
+// and n2 of reach, for the n2 = bh * bw cells of the block.
 // A cell's reach is a height that every sample that writes to the cell lies
 // below. An invalid cell (code 1) is written where nz < its upper-bound
 // threshold: that is its reach. An eligible cell (code 2) is written only
@@ -408,15 +430,17 @@ __device__ __forceinline__ uint2 march_gated(const Ray& r, int k, int lane,
 // spares work: a sample below it still takes the exact tests on the row.
 __global__ void __launch_bounds__(kThreads)
 init_outputs_kernel(const float4* __restrict__ pack, float* __restrict__ buf,
-                    int64_t n2) {
+                    int64_t n2, int64_t n_all) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n_all) return;
+  const int64_t m = i / (4 + 4 * n2), j = i - m * (4 + 4 * n2);  // map, float
   const int64_t n_zero = 4 + 2 * n2;
-  if (i < n_zero) {
+  if (j < n_zero) {
     buf[i] = 0.0f;
-  } else if (i < n_zero + n2) {
+  } else if (j < n_zero + n2) {
     buf[i] = INFINITY;
-  } else if (i < n_zero + 2 * n2) {
-    const float4 a = __ldg(pack + 2 * (i - n_zero - n2));
+  } else {
+    const float4 a = __ldg(pack + 2 * (m * n2 + j - n_zero - n2));
     float reach = -INFINITY;
     if (a.w == 1.0f) {
       reach = a.z;
@@ -432,9 +456,21 @@ __global__ void __launch_bounds__(kThreads)
 exact_march_kernel(const float4* __restrict__ pack,
                    const float* __restrict__ points,
                    const bool* __restrict__ valid,
-                   const float* __restrict__ t, GateArgs ga, Outputs out,
-                   int64_t n_rays, Grid g, float max_ray_length,
+                   const float* __restrict__ t, GateArgs ga, float* buf,
+                   int64_t n2, int64_t n_rays, Grid g, float max_ray_length,
                    float cleanup_step, float cos_thresh) {
+  // map blockIdx.y's pack, rays, sensor position, gate table and outputs
+  const int64_t map = blockIdx.y;
+  pack += 2 * n2 * map;
+  points += 3 * n_rays * map;
+  valid += n_rays * map;
+  t += 3 * map;
+  if (ga.table != nullptr) ga.table += map * ga.rows * ga.cols;
+  float* const slab = buf + (4 + 4 * n2) * map;
+  const Outputs out{
+      reinterpret_cast<float2*>(slab + 4), slab + 4 + 2 * n2, slab + 4 + 3 * n2,
+      ga.table != nullptr ? reinterpret_cast<unsigned long long*>(slab)
+                          : nullptr};
   const int lane = threadIdx.x & (G - 1);
   const unsigned gshift = (threadIdx.x & 31u) & ~static_cast<unsigned>(G - 1);
   // the first group of this warp and the number of groups in the grid
@@ -506,6 +542,121 @@ exact_march_kernel(const float4* __restrict__ pack,
   }
 }
 
+// max that keeps a NaN, as amax and max_pool2d do
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || isnan(a)) ? a : b;
+}
+
+struct Snapshot {
+  const float* layers;      // (7, n*n) per map
+  const float* normal;      // (3, n*n) per map
+  const float* inlier;      // (n*n,) per map, maps inlier_stride apart
+  int64_t inlier_stride;
+  float* new_layers;        // (7, n*n) per map
+  float* frac;              // (1,) per map, or null: no gate
+  float wall_num_thresh;
+  float outlier_variance;
+};
+
+// One thread per cell of a tile x tile gate block (blockIdx.x, blockIdx.y)
+// of map blockIdx.z: the cell's pack row and, when `blkmax` is given, the
+// block's max over its cells' write thresholds, into blkmax (nb*nb per map,
+// maps `blkmax_stride` apart). A cell on the map's border or past its edge
+// writes nothing (-inf).
+__global__ void cleanup_pack_kernel(Snapshot s, float4* __restrict__ pack,
+                                    float* __restrict__ blkmax,
+                                    int64_t blkmax_stride, int n, int tile) {
+  extern __shared__ float zs[];
+  const int64_t map = blockIdx.z;
+  const int64_t n2 = static_cast<int64_t>(n) * n;
+  const int r = blockIdx.y * tile + threadIdx.x / tile;
+  const int c = blockIdx.x * tile + threadIdx.x % tile;
+  float z = -INFINITY;
+  if (r < n && c < n) {
+    const int64_t cell = static_cast<int64_t>(r) * n + c;
+    const float* L = s.layers + 7 * n2 * map + cell;
+    const float* N = s.normal + 3 * n2 * map + cell;
+    const float h = L[0], var = L[n2], valid = L[2 * n2], age = L[4 * n2];
+    const float q = __fmul_rn(var > 1.0f ? 1.0f : var, 0.05f);
+    const float ub = L[6 * n2] < 0.5f ? INFINITY : L[5 * n2];
+    const bool invalid = valid < 0.5f;
+    const float ic = s.inlier[s.inlier_stride * map + cell];
+    const bool hit_ok = !invalid && age >= 0.5f &&
+                        !(ic > s.wall_num_thresh && age < 1.0f);
+    const float code = invalid ? 1.0f : (hit_ok ? 2.0f : 0.0f);
+    pack[2 * (n2 * map + cell)] = make_float4(h, q, ub, code);
+    pack[2 * (n2 * map + cell) + 1] = make_float4(N[0], N[n2], N[2 * n2], 0.0f);
+    if (r >= 1 && r < n - 1 && c >= 1 && c < n - 1) {
+      z = code == 1.0f ? ub
+                       : (code == 2.0f ? __fadd_rn(__fsub_rn(h, 0.01f), q)
+                                       : -INFINITY);
+    }
+  }
+  if (blkmax == nullptr) return;
+  zs[threadIdx.x] = z;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float m = zs[0];
+    for (int i = 1; i < tile * tile; ++i) m = max_nan(m, zs[i]);
+    blkmax[blkmax_stride * map + static_cast<int64_t>(blockIdx.y) * gridDim.x +
+           blockIdx.x] = m;
+  }
+}
+
+// The gate table: each gate block's max over the 3x3 gate blocks around it
+// (max_pool2d with -inf padding).
+__global__ void __launch_bounds__(kThreads)
+cleanup_gate_kernel(const float* __restrict__ blkmax, int64_t blkmax_stride,
+                    float* __restrict__ table, int nb, int64_t n_all) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n_all) return;
+  const int64_t per = static_cast<int64_t>(nb) * nb;
+  const int64_t map = i / per;
+  const int gr = static_cast<int>((i - map * per) / nb);
+  const int gc = static_cast<int>(i - map * per - static_cast<int64_t>(gr) * nb);
+  const float* b = blkmax + blkmax_stride * map;
+  float m = -INFINITY;
+  for (int dr = -1; dr <= 1; ++dr) {
+    for (int dc = -1; dc <= 1; ++dc) {
+      const int rr = gr + dr, cc = gc + dc;
+      if (rr >= 0 && rr < nb && cc >= 0 && cc < nb) {
+        m = max_nan(m, b[static_cast<int64_t>(rr) * nb + cc]);
+      }
+    }
+  }
+  table[i] = m;
+}
+
+// The new layers from the march's outputs, a thread per cell of every map,
+// and (the map's cell 0) the map's segment survivor fraction.
+__global__ void __launch_bounds__(kThreads)
+cleanup_apply_kernel(Snapshot s, const float* __restrict__ buf, int64_t n2,
+                     int64_t n_all) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n_all) return;
+  const int64_t map = i / n2, cell = i - map * n2;
+  const float* L = s.layers + 7 * n2 * map + cell;
+  float* O = s.new_layers + 7 * n2 * map + cell;
+  const float* slab = buf + (4 + 4 * n2) * map;
+  const float dec = slab[4 + 2 * cell], hits = slab[4 + 2 * cell + 1];
+  const float ub = slab[4 + 2 * n2 + cell];
+  const bool wrote = isfinite(ub);
+  O[0] = L[0];
+  O[n2] = __fadd_rn(L[n2], __fmul_rn(hits, s.outlier_variance));
+  O[2 * n2] = __fsub_rn(L[2 * n2], dec);
+  O[3 * n2] = L[3 * n2];
+  O[4 * n2] = L[4 * n2];
+  O[5 * n2] = wrote ? ub : L[5 * n2];
+  O[6 * n2] = wrote ? 1.0f : L[6 * n2];
+  if (cell == 0 && s.frac != nullptr) {
+    const long long* counts = reinterpret_cast<const long long*>(slab);
+    const long long total = counts[1];
+    s.frac[map] = total > 0 ? __fdiv_rn(static_cast<float>(counts[0]),
+                                        static_cast<float>(total))
+                            : 0.0f;
+  }
+}
+
 int log2_exact(int x) {
   for (int s = 0; s < 31; ++s) {
     if (x == (1 << s)) return s;
@@ -516,11 +667,12 @@ int log2_exact(int x) {
 template <int G>
 cudaError_t launch_march(const float4* pack, const float* points,
                          const bool* valid, const float* t, const GateArgs& ga,
-                         const Outputs& out, int64_t n_rays, const Grid& g,
-                         float max_ray_length, float cleanup_step,
-                         float cos_thresh, cudaStream_t st) {
-  // as many blocks as the card holds at once, or fewer when the rays need
-  // fewer: the groups then stride over the chunks of rays
+                         float* buf, int64_t n2, int n_maps, int64_t n_rays,
+                         const Grid& g, float max_ray_length,
+                         float cleanup_step, float cos_thresh,
+                         cudaStream_t st) {
+  // per map, as many blocks as the card holds at once, or fewer when the
+  // map's rays need fewer: the groups then stride over its chunks of rays
   static int64_t resident = 0;  // of this instantiation, on the first device seen
   if (resident == 0) {
     int device = 0, sms = 0, per_sm = 0;
@@ -537,51 +689,108 @@ cudaError_t launch_march(const float4* pack, const float* points,
   const int64_t n_chunks = (n_rays + G - 1) / G;
   const int64_t needed = (n_chunks * G + kThreads - 1) / kThreads;
   const int64_t blocks = needed < resident ? needed : resident;
-  exact_march_kernel<G><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      pack, points, valid, t, ga, out, n_rays, g, max_ray_length, cleanup_step,
-      cos_thresh);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_maps));
+  exact_march_kernel<G><<<grid, kThreads, 0, st>>>(
+      pack, points, valid, t, ga, buf, n2, n_rays, g, max_ray_length,
+      cleanup_step, cos_thresh);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// pack (bh*bw, 8) float32 rows of the block's cells (rows [r0, r0 + bh),
-// columns [c0, c0 + bw) of the n x n map); points (n_rays, 3) float32 ray
-// end points and valid (n_rays,) bool, both in the map-center frame; t (3,)
-// float32 sensor position; gate (gate_rows*gate_cols,) float32, the window
-// of gate blocks from (gate_r0, gate_c0), or null; outputs
-// (4 + 4*bh*bw,) float32, uninitialised and 8-byte aligned: initialised
-// here and then holding the two int64 counts (surviving, live segments),
-// the (bh*bw, 2) decrement and hit count, the (bh*bw,) upper bound (+inf
-// where unwritten) and (bh*bw,) of scratch. `lanes` (16 or 32) is the
-// number of lanes that march one ray. Works on `stream` and does not
-// synchronise.
+// A batch of n_maps maps, each with its own of what follows, map b's at b
+// times the size given here from map 0's: pack (bh*bw, 8) float32 rows of
+// the block's cells (rows [r0, r0 + bh), columns [c0, c0 + bw) of the n x n
+// map); points (n_rays, 3) float32 ray end points and valid (n_rays,) bool,
+// both in the map-center frame; t (3,) float32 sensor position; gate
+// (gate_rows*gate_cols,) float32, the window of gate blocks from
+// (gate_r0, gate_c0), or null for every map; outputs (4 + 4*bh*bw,)
+// float32, uninitialised, the whole buffer 8-byte aligned: initialised here
+// and then holding the two int64 counts (surviving, live segments), the
+// (bh*bw, 2) decrement and hit count, the (bh*bw,) upper bound (+inf where
+// unwritten) and (bh*bw,) of scratch. `lanes` (16 or 32) is the number of
+// lanes that march one ray.
+//
+// With `layers` (7, n*n) float32, `normal` (3, n*n) float32 and `inlier`
+// (n*n,) float32 (maps `inlier_stride` floats apart), the call is the
+// whole cleanup of whole maps (the block and the gate window the whole map,
+// the window ceil(n / block) gate blocks a side): pack and gate are written
+// here from them first, and `new_layers` (7, n*n) float32 and, with a gate,
+// `frac` (1,) float32 are written after the march.
+// Works on `stream` and does not synchronise.
 extern "C" int exact_march(const void* pack, const void* points,
                            const void* valid, const void* t, const void* gate,
-                           void* outputs, int64_t n_rays, int32_t n,
-                           int32_t r0, int32_t c0, int32_t bh, int32_t bw,
-                           float res, float step, int32_t n_steps,
+                           void* outputs, int32_t n_maps, int64_t n_rays,
+                           int32_t n, int32_t r0, int32_t c0, int32_t bh,
+                           int32_t bw, float res, float step, int32_t n_steps,
                            float max_ray_length, float cleanup_step,
                            float cos_thresh, int32_t seg, int32_t block,
                            int32_t gate_r0, int32_t gate_c0, int32_t gate_rows,
                            int32_t gate_cols, float gate_eps, int32_t lanes,
+                           const void* layers, const void* normal,
+                           const void* inlier, int64_t inlier_stride,
+                           void* new_layers, void* frac,
+                           float wall_num_thresh, float outlier_variance,
                            void* stream) {
-  if (n_rays == 0) return static_cast<int>(cudaSuccess);
-  if (n <= 2 || n_steps < 0 || r0 < 0 || c0 < 0 || bh <= 0 || bw <= 0 ||
-      r0 + bh > n || c0 + bw > n ||
+  const bool snapshot = layers != nullptr;
+  if (n_maps == 0 || (n_rays == 0 && !snapshot)) {
+    return static_cast<int>(cudaSuccess);
+  }
+  if (n_maps < 0 || n_maps > 65535 || n_rays < 0 || n <= 2 || n_steps < 0 ||
+      r0 < 0 || c0 < 0 || bh <= 0 || bw <= 0 || r0 + bh > n || c0 + bw > n ||
       (gate != nullptr && (seg <= 0 || block <= 0 || gate_rows <= 0 ||
                            gate_cols <= 0)) ||
       (reinterpret_cast<uintptr_t>(outputs) & 7u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int nb = gate != nullptr ? (n + block - 1) / block : 0;
+  if (snapshot &&
+      (normal == nullptr || inlier == nullptr || new_layers == nullptr ||
+       r0 != 0 || c0 != 0 || bh != n || bw != n ||
+       (gate != nullptr && (frac == nullptr || block > 32 || gate_r0 != 0 ||
+                            gate_c0 != 0 || gate_rows != nb ||
+                            gate_cols != nb)) ||
+       (reinterpret_cast<uintptr_t>(pack) & 15u) != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t n2 = static_cast<int64_t>(bh) * bw;
   float* buf = static_cast<float*>(outputs);
-  const int64_t n_zero = 4 + 2 * n2, n_all = 4 + 4 * n2;
+  const int64_t n_all = (4 + 4 * n2) * n_maps;
   const float4* p = static_cast<const float4*>(pack);
+  cudaError_t err = cudaSuccess;
+  const Snapshot snap{static_cast<const float*>(layers),
+                      static_cast<const float*>(normal),
+                      static_cast<const float*>(inlier), inlier_stride,
+                      static_cast<float*>(new_layers),
+                      gate != nullptr ? static_cast<float*>(frac) : nullptr,
+                      wall_num_thresh, outlier_variance};
+  if (snapshot) {
+    // each map's gate block maxima go to its outputs' scratch (nb*nb <=
+    // n*n floats), which the initialisation below overwrites after the
+    // table is built
+    const int tile = gate != nullptr ? block : 8;
+    float* blkmax = gate != nullptr ? buf + 4 + 3 * n2 : nullptr;
+    const dim3 grid(static_cast<unsigned>((n + tile - 1) / tile),
+                    static_cast<unsigned>((n + tile - 1) / tile),
+                    static_cast<unsigned>(n_maps));
+    cleanup_pack_kernel<<<grid, tile * tile, tile * tile * sizeof(float), st>>>(
+        snap, const_cast<float4*>(p), blkmax, 4 + 4 * n2, n, tile);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (gate != nullptr) {
+      const int64_t n_table = static_cast<int64_t>(nb) * nb * n_maps;
+      float* table = const_cast<float*>(static_cast<const float*>(gate));
+      cleanup_gate_kernel<<<static_cast<unsigned>((n_table + kThreads - 1) / kThreads),
+                            kThreads, 0, st>>>(blkmax, 4 + 4 * n2, table, nb,
+                                               n_table);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
   init_outputs_kernel<<<static_cast<unsigned>((n_all + kThreads - 1) / kThreads),
-                        kThreads, 0, st>>>(p, buf, n2);
-  cudaError_t err = cudaGetLastError();
+                        kThreads, 0, st>>>(p, buf, n2, n_all);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const Grid g{n, res, 0.5f * static_cast<float>(n), step, n_steps,
@@ -589,23 +798,29 @@ extern "C" int exact_march(const void* pack, const void* points,
   const GateArgs ga{static_cast<const float*>(gate), seg, log2_exact(seg),
                     block, log2_exact(block), gate_r0, gate_c0, gate_rows,
                     gate_cols, gate_eps};
-  const Outputs out{
-      reinterpret_cast<float2*>(buf + 4), buf + n_zero, buf + n_zero + n2,
-      gate != nullptr ? reinterpret_cast<unsigned long long*>(buf) : nullptr};
   const float* pts = static_cast<const float*>(points);
   const bool* v = static_cast<const bool*>(valid);
   const float* tp = static_cast<const float*>(t);
-  switch (lanes) {
-    case 16:
-      err = launch_march<16>(p, pts, v, tp, ga, out, n_rays, g, max_ray_length,
-                             cleanup_step, cos_thresh, st);
-      break;
-    case 32:
-      err = launch_march<32>(p, pts, v, tp, ga, out, n_rays, g, max_ray_length,
-                             cleanup_step, cos_thresh, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  if (n_rays > 0) {
+    switch (lanes) {
+      case 16:
+        err = launch_march<16>(p, pts, v, tp, ga, buf, n2, n_maps, n_rays, g,
+                               max_ray_length, cleanup_step, cos_thresh, st);
+        break;
+      case 32:
+        err = launch_march<32>(p, pts, v, tp, ga, buf, n2, n_maps, n_rays, g,
+                               max_ray_length, cleanup_step, cos_thresh, st);
+        break;
+      default:
+        err = cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (snapshot) {
+    const int64_t n_cells = n2 * n_maps;
+    cleanup_apply_kernel<<<static_cast<unsigned>((n_cells + kThreads - 1) / kThreads),
+                           kThreads, 0, st>>>(snap, buf, n2, n_cells);
+    err = cudaGetLastError();
   }
   return static_cast<int>(err);
 }

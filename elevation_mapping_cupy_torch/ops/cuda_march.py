@@ -22,6 +22,11 @@ Inputs, built by ``ops/raycast.py``:
 - ``t`` (3,) sensor position in the map-center frame;
 - ``gate``: optional :class:`Gate`.
 
+A leading batch axis of B maps may come first on each (``pack`` (B, h*w, 8),
+``world`` (B, N, 3), ``valid`` (B, N), ``t`` (B, 3), the gate's ``table``
+(B, rows, cols)): map b's rays then march on map b's cells, and every output
+has the same axis. The kernel marches the whole batch in one launch.
+
 Each ray's direction, decrement and live-step count come from ``world`` and
 ``t`` (:func:`ray_table`); step m samples the ray at
 ``s_m = (m + 1) * ray_step``.
@@ -29,11 +34,17 @@ Each ray's direction, decrement and live-step count come from ``world`` and
 Outputs (:class:`MarchResult`): per cell of the block the summed
 decrement, the number of hits (an integer in float32), the lowest
 upper-bound candidate (+inf where none was written) and, with a gate, the
-surviving and live segment counts (int64).
+surviving and live segment counts (int64), one pair per map.
 
 On a block every sample is computed as on the whole map, in the same
 global cell, and writes only when that cell lies in the block: the blocks'
 outputs put together are the whole map's.
+
+:func:`exact_cleanup` is the same launch given the map's layers instead of
+the pack: the kernel then builds the pack and the gate table itself and
+writes the new layers, so the whole exact cleanup of whole maps on the card
+is one call (``ops/raycast.py::visibility_cleanup_exact`` composes the same
+steps from its plain parts elsewhere).
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ __all__ = [
     "MarchResult",
     "exact_march",
     "exact_march_reference",
+    "exact_cleanup",
     "ray_steps",
     "ray_table",
     "steps_below",
@@ -64,9 +76,11 @@ KERNEL = CudaKernel(
     "exact_march.cu",
     "exact_march",
     [ctypes.c_void_p] * 6
-    + [ctypes.c_int64] + [ctypes.c_int32] * 5
+    + [ctypes.c_int32, ctypes.c_int64] + [ctypes.c_int32] * 5
     + [ctypes.c_float, ctypes.c_float, ctypes.c_int32, ctypes.c_float, ctypes.c_float, ctypes.c_float]
-    + [ctypes.c_int32] * 6 + [ctypes.c_float, ctypes.c_int32, ctypes.c_void_p],
+    + [ctypes.c_int32] * 6 + [ctypes.c_float, ctypes.c_int32]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_float]
+    + [ctypes.c_void_p],
 )
 
 # lanes of a warp that march one ray together (16 or 32), without and with
@@ -92,7 +106,7 @@ class Gate(NamedTuple):
     whose first sample's gate block lies outside the table, holds no writer
     and is skipped."""
 
-    table: torch.Tensor
+    table: torch.Tensor                    # (rows, cols), or (B, rows, cols)
     seg: int
     block: int
     eps: float
@@ -100,6 +114,8 @@ class Gate(NamedTuple):
 
 
 class MarchResult(NamedTuple):
+    """Per cell of the block, with the inputs' batch axis in front."""
+
     dec: torch.Tensor                      # (h*w,) float32 summed decrement
     hits: torch.Tensor                     # (h*w,) float32 hit count
     ubmin: torch.Tensor                    # (h*w,) float32, +inf where unwritten
@@ -196,35 +212,53 @@ def _block(cfg: MapConfig, block: Optional[Block]) -> Block:
 
 def _check(pack, world, valid, t, cfg: MapConfig, gate: Optional[Gate], block: Block) -> None:
     n2 = block.h * block.w
-    if pack.shape != (n2, PACK_WIDTH):
-        raise ValueError(f"pack must be ({n2}, {PACK_WIDTH}); got {tuple(pack.shape)}")
-    if world.dim() != 2 or world.shape[1] != 3 or valid.shape != (world.shape[0],):
-        raise ValueError(f"world must be (N, 3) and valid (N,); got {tuple(world.shape)} and {tuple(valid.shape)}")
-    if t.shape != (3,):
-        raise ValueError(f"t must be (3,); got {tuple(t.shape)}")
+    lead = tuple(pack.shape[:-2])
+    if pack.dim() not in (2, 3) or tuple(pack.shape[-2:]) != (n2, PACK_WIDTH):
+        raise ValueError(f"pack must be ({n2}, {PACK_WIDTH}) with at most a batch axis; got {tuple(pack.shape)}")
+    if world.shape[:-2] != lead or world.shape[-1:] != (3,) or valid.shape != world.shape[:-1]:
+        raise ValueError(f"world must be {lead + ('N', 3)} and valid {lead + ('N',)}; "
+                         f"got {tuple(world.shape)} and {tuple(valid.shape)}")
+    if t.shape != lead + (3,):
+        raise ValueError(f"t must be {lead + (3,)}; got {tuple(t.shape)}")
     if valid.dtype != torch.bool:
         raise TypeError(f"valid must be bool; got {valid.dtype}")
     tensors = [pack, world, valid, t] + ([gate.table] if gate is not None else [])
     if len({x.device for x in tensors}) != 1:
         raise ValueError("the march's tensors must lie on one device")
-    if gate is not None and (gate.table.dim() != 2 or min(gate.origin) < 0):
-        raise ValueError(f"gate table must be 2-D from an origin >= 0; got {tuple(gate.table.shape)} at {gate.origin}")
+    if gate is not None and (gate.table.shape[:-2] != lead or gate.table.dim() != 2 + len(lead)
+                             or min(gate.origin) < 0):
+        raise ValueError(f"gate table must be {lead + ('rows', 'cols')} from an origin >= 0; "
+                         f"got {tuple(gate.table.shape)} at {gate.origin}")
 
 
-def _segment_survives(rays, m0: int, m1, t, gate: Gate, steps, cfg: MapConfig) -> torch.Tensor:
+def _batched(pack, world, valid, t, gate: Optional[Gate]):
+    """The inputs with a batch axis (one map gets one), and whether they
+    came without."""
+    if pack.dim() == 3:
+        return pack, world, valid, t, gate, False
+    gate = None if gate is None else gate._replace(table=gate.table[None])
+    return pack[None], world[None], valid[None], t[None], gate, True
+
+
+def _unbatched(res: MarchResult, single: bool) -> MarchResult:
+    return MarchResult(*(None if x is None else x[0] for x in res)) if single else res
+
+
+def _segment_survives(rays, m0: int, m1, t, maps, gate: Gate, steps, cfg: MapConfig) -> torch.Tensor:
     """Gate test of the segments [m0, m1) of the rays ``rays`` (7, L)
-    (``m1`` (L,) exclusive ends): True where the segment may hold a writer
+    (``m1`` (L,) exclusive ends) from ``t`` (3, L) on the maps ``maps`` (L,)
+    of the batched table: True where the segment may hold a writer
     (``_exact_gated``'s test, raycast.py:801-810)."""
     s_lo = steps[m0]
     s_hi = steps[(m1 - 1).long()]
     xy0 = torch.stack([_fma(rays[0], s_lo, t[0]), _fma(rays[1], s_lo, t[1])], dim=-1)
     nz_min = torch.minimum(_fma(rays[2], s_lo, t[2]), _fma(rays[2], s_hi, t[2]))
     ix, iy = cell_indices(xy0, torch.zeros(2, dtype=rays.dtype, device=rays.device), cfg)
-    rows, cols = gate.table.shape
+    rows, cols = gate.table.shape[-2:]
     bx = ix // gate.block - gate.origin[0]
     by = iy // gate.block - gate.origin[1]
     held = (bx >= 0) & (bx < rows) & (by >= 0) & (by < cols)
-    g = gate.table.reshape(-1)[torch.where(held, bx * cols + by, 0).long()]
+    g = gate.table.reshape(-1)[torch.where(held, (maps * rows + bx) * cols + by, 0).long()]
     return held & (nz_min < g + gate.eps)
 
 
@@ -251,43 +285,60 @@ def exact_march_reference(
     compiles it on the CPU, FMAs included (:func:`fma32`); only the order of
     the decrement's additions differs.
 
+    A batch marches every map's rays together, each on its own map's
+    cells; per map the result is that map's march alone, bit for bit (a
+    cell's decrement adds its rays in the same order).
+
     ``work``, when given, gets the number of valid rays and tested segments,
     and of samples at each rule the march applies: walked (every sample of
     a ray's live steps, or of the segments that pass the gate), fresh (in
     the map and in a cell the previous step was not in), tested (past the
     endpoint test, so the cell row is read), eligible (on a cell that can
-    be cleaned up), penetrating, hits and upper-bound writes. A bound on the
-    kernel's time is counted from these; on a block, "fresh" counts only the
-    samples in the block."""
+    be cleaned up), penetrating, hits and upper-bound writes, summed over
+    the maps. A bound on the kernel's time is counted from these; on a
+    block, "fresh" counts only the samples in the block."""
     block = _block(cfg, block)
     _check(pack, world, valid, t, cfg, gate, block)
+    pack, world, valid, t, gate, single = _batched(pack, world, valid, t, gate)
     n = cfg.cell_n
     dev, dt = pack.device, pack.dtype
+    b, n_rays = world.shape[:2]
     n2 = block.h * block.w
-    dec = torch.zeros(n2, dtype=dt, device=dev)
-    hits = torch.zeros(n2, dtype=dt, device=dev)
-    ubmin = torch.full((n2,), math.inf, dtype=dt, device=dev)
-    counts = torch.zeros(2, dtype=torch.int64, device=dev) if gate is not None else None
-    n_rays = world.shape[0]
-    _tally(work, rays=valid.sum() if n_rays else 0)
-    if n_rays == 0:
-        return MarchResult(dec, hits, ubmin, counts)
-    rays, k = ray_table(world, valid, t, cfg)
+    dec = torch.zeros(b * n2, dtype=dt, device=dev)
+    hits = torch.zeros(b * n2, dtype=dt, device=dev)
+    ubmin = torch.full((b * n2,), math.inf, dtype=dt, device=dev)
+    counts = torch.zeros(b * 2, dtype=torch.int64, device=dev) if gate is not None else None
+
+    def result():
+        return _unbatched(MarchResult(dec.view(b, n2), hits.view(b, n2), ubmin.view(b, n2),
+                                      None if counts is None else counts.view(b, 2)), single)
+
+    _tally(work, rays=valid.sum() if valid.numel() else 0)
+    if valid.numel() == 0:
+        return result()
+    # every map's rays in one list, each with its map and sensor position
+    maps = torch.arange(b, device=dev).repeat_interleave(n_rays)
+    t_ray = t[maps]
+    rays, k = ray_table(world.reshape(-1, 3), valid.reshape(-1), t_ray, cfg)
     k_max = int(k.max())
     if k_max == 0:
-        return MarchResult(dec, hits, ubmin, counts)
+        return result()
 
-    # longest rays first: the rays live at step m are then a prefix
+    # longest rays first: the rays live at step m are then a prefix (a
+    # stable sort keeps each map's rays in their order)
     order = torch.argsort(k, descending=True, stable=True)
     ks = k[order].long()
     rr = rays[:, order]
+    tt = t_ray[order].T
+    mo = maps[order]
     ended = torch.cumsum(torch.bincount(ks, minlength=k_max + 1), 0)
-    n_live = (n_rays - ended[:k_max]).tolist()   # rays with k > m, per step m
+    n_live = (b * n_rays - ended[:k_max]).tolist()   # rays with k > m, per step m
     steps = ray_steps(cfg, dev).to(dt)
     zero2 = torch.zeros(2, dtype=dt, device=dev)
+    pack = pack.reshape(b * n2, PACK_WIDTH)
 
     def position(axis, s, live):
-        return _fma(rr[axis, :live], s, t[axis])
+        return _fma(rr[axis, :live], s, tt[axis, :live])
 
     def cells(s, live):
         xy = torch.stack([position(0, s, live), position(1, s, live)], dim=-1)
@@ -299,9 +350,9 @@ def exact_march_reference(
         live = n_live[m]
         if gate is not None and m % gate.seg == 0:
             m1 = torch.clamp(ks[:live], max=m + gate.seg)
-            survive = _segment_survives(rr[:, :live], m, m1, t, gate, steps, cfg)
-            counts[0] += survive.sum()
-            counts[1] += live
+            survive = _segment_survives(rr[:, :live], m, m1, tt[:, :live], mo[:live], gate, steps, cfg)
+            counts[1::2] += torch.bincount(mo[:live], minlength=b)
+            counts[0::2] += torch.bincount(mo[:live][survive], minlength=b)
             _tally(work, segments=live)
         s = steps[m]
         nidx, ix, iy = cells(s, live)
@@ -320,7 +371,7 @@ def exact_march_reference(
         sel = torch.nonzero(active).squeeze(1)
         if sel.numel() == 0:
             continue
-        cell = local[sel].long()
+        cell = mo[sel] * n2 + local[sel].long()
         nz = nz[sel]
         row = pack[cell]
         ub_cond = nz < row[:, 2]
@@ -334,7 +385,7 @@ def exact_march_reference(
         dec.index_add_(0, cell[hit], rr[6, sel][hit])
         hits.index_add_(0, cell[hit], torch.ones_like(nz[hit]))
         ubmin.scatter_reduce_(0, cell[write_ub], nz[write_ub], reduce="amin")
-    return MarchResult(dec, hits, ubmin, counts)
+    return result()
 
 
 def exact_march(
@@ -347,10 +398,11 @@ def exact_march(
     block: Optional[Block] = None,
 ) -> MarchResult:
     """The exact march: see :func:`exact_march_reference` for the contract.
-    CUDA tensors go to the kernel; CPU tensors to the plain version. From
-    the kernel, ``dec`` and ``hits`` are the two columns of one (h*w, 2)
-    buffer, views of stride 2; ``ubmin`` and ``counts`` are views of the same
-    allocation. The plain version returns contiguous tensors."""
+    CUDA tensors go to the kernel, one launch for every map of a batch; CPU
+    tensors to the plain version. From the kernel, ``dec`` and ``hits`` are
+    the two columns of one (..., h*w, 2) buffer, views of stride 2;
+    ``ubmin`` and ``counts`` are views of the same allocation. The plain
+    version returns contiguous tensors."""
     block = _block(cfg, block)
     _check(pack, world, valid, t, cfg, gate, block)
     if not on_card(pack, "exact_march"):
@@ -358,32 +410,101 @@ def exact_march(
     tensors = [pack, world, t] + ([gate.table] if gate is not None else [])
     if any(x.dtype != torch.float32 for x in tensors):
         raise TypeError("exact_march's kernel takes float32 pack, world, t and gate table")
-    n2 = block.h * block.w
-    dev = pack.device
+    pack, world, valid, t, gate, single = _batched(pack, world, valid, t, gate)
+    b, n2 = world.shape[0], block.h * block.w
     pack, world, valid, t = (x.contiguous() for x in (pack, world, valid, t))
+    if gate is not None:
+        gate = gate._replace(table=gate.table.contiguous())
+    buf = _launch(pack, world, valid, t, cfg, gate, block)
+    dechits = buf[:, 4 : 4 + 2 * n2].view(b, n2, 2)
+    counts = buf[:, :4].view(torch.int64) if gate is not None else None
+    res = MarchResult(dechits[..., 0], dechits[..., 1], buf[:, 4 + 2 * n2 : 4 + 3 * n2], counts)
+    return _unbatched(res, single)
+
+
+def _launch(pack, world, valid, t, cfg: MapConfig, gate: Optional[Gate], block: Block, snapshot=()) -> torch.Tensor:
+    """One launch of K2 over batched, contiguous float32 inputs (none when
+    there is nothing to march, which a whole cleanup never asks); returns
+    its outputs' buffer. ``snapshot``,
+    when given, is the entry point's (layers, normal, inlier, inlier's map
+    stride, new layers, survivor fractions) for a whole cleanup."""
+    b, n_rays = world.shape[:2]
+    n2 = block.h * block.w
     gate_ptr, seg, gblock, gate_r0, gate_c0, rows, cols, eps = None, 0, 0, 0, 0, 0, 0, 0.0
     if gate is not None:
-        table = gate.table.contiguous()
-        gate_ptr = table.data_ptr()
+        gate_ptr = gate.table.data_ptr()
         seg, gblock, eps = gate.seg, gate.block, gate.eps
-        (gate_r0, gate_c0), (rows, cols) = gate.origin, table.shape
-    if world.shape[0] == 0:  # nothing to march: no launch
-        zeros = torch.zeros(2 * n2, dtype=torch.float32, device=dev)
-        ubmin = torch.full((n2,), math.inf, dtype=torch.float32, device=dev)
-        counts = torch.zeros(2, dtype=torch.int64, device=dev) if gate is not None else None
-        return MarchResult(zeros[:n2], zeros[n2:], ubmin, counts)
+        (gate_r0, gate_c0), (rows, cols) = gate.origin, gate.table.shape[-2:]
     # one buffer for every output, initialised by the entry point on the
-    # stream: 4 floats that hold the two int64 counts, the (h*w, 2)
+    # stream: per map 4 floats that hold the two int64 counts, the (h*w, 2)
     # decrement and hit count (one float2 atomic adds both), the upper bound,
     # and h*w of the kernel's scratch
-    buf = torch.empty(4 + 4 * n2, dtype=torch.float32, device=dev)
+    buf = torch.empty((b, 4 + 4 * n2), dtype=torch.float32, device=pack.device)
+    if valid.numel() == 0:  # nothing to march: no launch
+        buf[:, : 4 + 2 * n2] = 0.0
+        buf[:, 4 + 2 * n2 :] = math.inf
+        return buf
+    layers, normal, inlier, inlier_stride, new_layers, frac = snapshot or (None, None, None, 0, None, None)
     KERNEL.launch(
-        dev, pack.data_ptr(), world.data_ptr(), valid.data_ptr(), t.data_ptr(), gate_ptr, buf.data_ptr(),
-        world.shape[0], cfg.cell_n, block.r0, block.c0, block.h, block.w,
+        pack.device, pack.data_ptr(), world.data_ptr(), valid.data_ptr(), t.data_ptr(), gate_ptr, buf.data_ptr(),
+        b, n_rays, cfg.cell_n, block.r0, block.c0, block.h, block.w,
         cfg.resolution, cfg.ray_step, cfg.n_ray_steps,
         cfg.max_ray_length, cfg.cleanup_step, cfg.cleanup_cos_thresh,
         seg, gblock, gate_r0, gate_c0, rows, cols, eps, LANES_GATED if gate is not None else LANES_FLAT,
+        *(None if x is None else x.data_ptr() for x in (layers, normal, inlier)), inlier_stride,
+        *(None if x is None else x.data_ptr() for x in (new_layers, frac)),
+        cfg.wall_num_thresh, cfg.outlier_variance,
     )
-    dechits = buf[4 : 4 + 2 * n2].view(n2, 2)
-    counts = buf[:4].view(torch.int64) if gate is not None else None
-    return MarchResult(dechits[:, 0], dechits[:, 1], buf[4 + 2 * n2 : 4 + 3 * n2], counts)
+    return buf
+
+
+def exact_cleanup(
+    layers: torch.Tensor,
+    normal: torch.Tensor,
+    inlier_cnt: torch.Tensor,
+    world: torch.Tensor,
+    valid: torch.Tensor,
+    t: torch.Tensor,
+    cfg: MapConfig,
+    gate: Optional[Gate] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The exact cleanup of whole maps on the card in one K2 launch: the
+    pack (``raycast.exact_precompute``) and, with ``gate`` (a :class:`Gate`
+    whose ``table`` is None: the kernel builds it, ``raycast.exact_gate``),
+    the march, and the new layers. ``layers`` (B, 7, n, n), ``normal`` (B,
+    3, n, n), ``inlier_cnt`` (B, n, n), ``world`` (B, N, 3), ``valid`` (B,
+    N), ``t`` (B, 3), all float32 but ``valid``, on one card. Returns the new
+    layers and, with a gate, the segment survivor fraction per map (B,),
+    0.0 where no segment was live; without a gate None. Refuses CPU
+    tensors: their cleanup is ``raycast.visibility_cleanup_exact``'s
+    composition of the plain parts."""
+    n = cfg.cell_n
+    b = layers.shape[0]
+    if layers.shape != (b, 7, n, n) or normal.shape != (b, 3, n, n) or inlier_cnt.shape != (b, n, n):
+        raise ValueError(f"the cleanup takes (B, 7, {n}, {n}) layers, (B, 3, {n}, {n}) normals and (B, {n}, {n}) "
+                         f"inlier counts; got {tuple(layers.shape)}, {tuple(normal.shape)}, {tuple(inlier_cnt.shape)}")
+    if gate is not None and gate.table is not None:
+        raise ValueError("exact_cleanup builds the gate table itself: give a Gate whose table is None")
+    if any(x.dtype != torch.float32 for x in (layers, normal, inlier_cnt)):
+        raise TypeError("exact_cleanup's kernel takes float32 layers, normals and inlier counts")
+    if not on_card(layers, "exact_cleanup"):
+        raise ValueError("exact_cleanup runs on the card; compose the plain parts on the CPU")
+    block = Block.whole(n, n)
+    pack = torch.empty((b, n * n, PACK_WIDTH), dtype=torch.float32, device=layers.device)
+    if gate is not None:
+        nb = -(-n // gate.block)
+        gate = gate._replace(table=torch.empty((b, nb, nb), dtype=torch.float32, device=layers.device),
+                             origin=(0, 0))
+    _check(pack, world, valid, t, cfg, gate, block)
+    if any(x.dtype != torch.float32 for x in (world, t)):
+        raise TypeError("exact_cleanup's kernel takes float32 world and t")
+    if valid.numel() == 0:  # nothing to march: no launch, nothing changes
+        return layers.clone(), (None if gate is None else torch.zeros((b,), dtype=torch.float32, device=layers.device))
+    layers, normal, world, valid, t = (x.contiguous() for x in (layers, normal, world, valid, t))
+    if inlier_cnt.stride()[1:] != (n, 1):
+        inlier_cnt = inlier_cnt.contiguous()
+    new_layers = torch.empty_like(layers)
+    frac = torch.empty((b,), dtype=torch.float32, device=layers.device) if gate is not None else None
+    _launch(pack, world, valid, t, cfg, gate, block,
+            (layers, normal, inlier_cnt, inlier_cnt.stride(0), new_layers, frac))
+    return new_layers, frac

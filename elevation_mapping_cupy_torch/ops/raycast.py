@@ -36,7 +36,6 @@ import torch.nn.functional as F
 from .. import tracing
 from ..config import MapConfig
 from ..kernels import CudaKernel, on_card
-from ..state import stack_tensors
 from . import cuda_march, scatter
 from .geometry import Block, PointAssociation, true_div
 
@@ -129,8 +128,9 @@ def visibility_cleanup(
     segment survivor fraction, 1.0 for every other path, the signal
     :class:`AdaptiveExactRouter` routes on.
 
-    A batch of maps (a leading axis on every argument) takes the polar cube
-    as one pass over all maps, and the exact march as one K2 launch per map.
+    A batch of maps (a leading axis on every argument) takes either cleanup
+    in one pass over all maps: the polar cube's kernels once, the exact
+    march as one K2 launch.
     With a ``block`` the layers are those cells of the map; ``reduce`` sums
     the gated march's segment counts over the processes of a sharded map.
     """
@@ -141,18 +141,7 @@ def visibility_cleanup(
         out = visibility_cleanup_polar(layers, normal, assoc, inlier_cnt, t, cfg, block)
         return (out, _no_gate_aux(layers)) if with_aux else out
     if mode == "exact":
-        resolve_exact_impl(cfg)  # an unknown implementation raises here
-        kw = dict(block=block, reduce=reduce)
-        if layers.dim() == 3:
-            return visibility_cleanup_exact(layers, normal, assoc, inlier_cnt, t, cfg, with_aux=with_aux, **kw)
-        outs = [
-            visibility_cleanup_exact(layers[b], normal[b], assoc.map(b), inlier_cnt[b], t[b], cfg, True, **kw)
-            for b in range(layers.shape[0])
-        ]
-        out = stack_tensors([o for o, _ in outs])
-        if not with_aux:
-            return out
-        return out, {"gate_survivor_frac": stack_tensors([a["gate_survivor_frac"] for _, a in outs])}
+        return visibility_cleanup_exact(layers, normal, assoc, inlier_cnt, t, cfg, with_aux, block, reduce)
     raise ValueError(f"unknown raycast_mode {cfg.raycast_mode!r}")
 
 
@@ -163,22 +152,23 @@ def visibility_cleanup(
 def exact_precompute(
     layers: torch.Tensor, normal: torch.Tensor, inlier_cnt: torch.Tensor, cfg: MapConfig
 ) -> torch.Tensor:
-    """(n*n, 8) cell rows of the R1 snapshot (raycast.py:193-222): height,
-    penetration slack min(var, 1) * 0.05, upper-bound threshold (+inf where
-    the cell has no upper bound), code (1 invalid, 2 eligible to be hit, 0
-    neither), normal x, y, z, and a zero pad (K2 reads a row as two 16-byte
-    loads). Selections only, so every comparison the march makes on it is
-    the inline one."""
-    snap = layers.reshape(7, -1)
-    nrm = normal.reshape(3, -1)
-    ic = inlier_cnt.reshape(-1)
+    """(..., n*n, 8) cell rows of the R1 snapshot (raycast.py:193-222):
+    height, penetration slack min(var, 1) * 0.05, upper-bound threshold
+    (+inf where the cell has no upper bound), code (1 invalid, 2 eligible to
+    be hit, 0 neither), normal x, y, z, and a zero pad (K2 reads a row as two
+    16-byte loads); a batch of maps in front. Selections only, so every
+    comparison the march makes on it is the inline one."""
+    lead = layers.shape[:-3]
+    snap = layers.reshape(*lead, 7, -1).unbind(-2)
+    nrm = normal.reshape(*lead, 3, -1).unbind(-2)
+    ic = inlier_cnt.reshape(*lead, -1)
     q = torch.clamp(snap[1], max=1.0) * 0.05
     ub_thresh = torch.where(snap[6] < 0.5, math.inf, snap[5])
     is_invalid = snap[2] < 0.5
     hit_ok = ~is_invalid & (snap[4] >= 0.5) & ~((ic > cfg.wall_num_thresh) & (snap[4] < 1.0))
-    code = torch.where(is_invalid, 1.0, torch.where(hit_ok, 2.0, 0.0)).to(snap.dtype)
+    code = torch.where(is_invalid, 1.0, torch.where(hit_ok, 2.0, 0.0)).to(layers.dtype)
     pad = torch.zeros_like(q)
-    return torch.stack([snap[0], q, ub_thresh, code, nrm[0], nrm[1], nrm[2], pad], dim=1)
+    return torch.stack([snap[0], q, ub_thresh, code, nrm[0], nrm[1], nrm[2], pad], dim=-1)
 
 
 def exact_gate(pack: torch.Tensor, cfg: MapConfig, block: Optional[Block] = None) -> cuda_march.Gate:
@@ -186,7 +176,7 @@ def exact_gate(pack: torch.Tensor, cfg: MapConfig, block: Optional[Block] = None
     height below which a sample can write (the upper bound of an invalid
     cell, the penetration threshold of an eligible one, -inf otherwise and
     on the border), its max over gate blocks of B x B cells, dilated by the
-    3x3 gate block neighbourhood.
+    3x3 gate block neighbourhood; one table per map of a batched ``pack``.
 
     For the cells of a ``block`` the table covers the gate blocks within one
     of the block's (cells outside the block write nothing here, -inf), so a
@@ -196,25 +186,26 @@ def exact_gate(pack: torch.Tensor, cfg: MapConfig, block: Optional[Block] = None
     B = _GATE_BLOCK
     if block is None:
         block = Block.whole(n, n)
+    lead = pack.shape[:-2]
     zgate = torch.where(
-        pack[:, 3] == 1.0,
-        pack[:, 2],
-        torch.where(pack[:, 3] == 2.0, pack[:, 0] - 0.01 + pack[:, 1], -math.inf),
-    ).reshape(block.h, block.w)
+        pack[..., 3] == 1.0,
+        pack[..., 2],
+        torch.where(pack[..., 3] == 2.0, pack[..., 0] - 0.01 + pack[..., 1], -math.inf),
+    ).reshape(-1, block.h, block.w)
     nb = -(-n // B)
     g0 = (max(block.r0 // B - 1, 0), max(block.c0 // B - 1, 0))
     g1 = (min(-(-(block.r0 + block.h) // B) + 1, nb), min(-(-(block.c0 + block.w) // B) + 1, nb))
     rows, cols = g1[0] - g0[0], g1[1] - g0[1]
-    zpad = torch.full((rows * B, cols * B), -math.inf, dtype=pack.dtype, device=pack.device)
+    zpad = torch.full((zgate.shape[0], rows * B, cols * B), -math.inf, dtype=pack.dtype, device=pack.device)
     # the border never writes: the block's cells within rows and columns
     # [1, n - 1), at their place in the window
     r = (max(block.r0, 1), min(block.r0 + block.h, n - 1))
     c = (max(block.c0, 1), min(block.c0 + block.w, n - 1))
-    zpad[r[0] - g0[0] * B : r[1] - g0[0] * B, c[0] - g0[1] * B : c[1] - g0[1] * B] = \
-        zgate[r[0] - block.r0 : r[1] - block.r0, c[0] - block.c0 : c[1] - block.c0]
-    blkmax = zpad.reshape(rows, B, cols, B).amax(dim=(1, 3))
-    table = F.max_pool2d(blkmax[None, None], 3, stride=1, padding=1)[0, 0]
-    return cuda_march.Gate(table.contiguous(), _GATE_SEG, B, _GATE_EPS, g0)
+    zpad[:, r[0] - g0[0] * B : r[1] - g0[0] * B, c[0] - g0[1] * B : c[1] - g0[1] * B] = \
+        zgate[:, r[0] - block.r0 : r[1] - block.r0, c[0] - block.c0 : c[1] - block.c0]
+    blkmax = zpad.reshape(-1, rows, B, cols, B).amax(dim=(2, 4))
+    table = F.max_pool2d(blkmax[:, None], 3, stride=1, padding=1)[:, 0]
+    return cuda_march.Gate(table.reshape(*lead, rows, cols).contiguous(), _GATE_SEG, B, _GATE_EPS, g0)
 
 
 def visibility_cleanup_exact(
@@ -231,41 +222,56 @@ def visibility_cleanup_exact(
     """Exact visibility cleanup (raycast.py:142-190): every ray marched in
     steps of res/sqrt(2), each fresh sample in a cell it penetrates
     decrementing the cell's validity and adding to its variance, samples
-    below an invalid cell's upper bound lowering it. One K2 launch; the
-    gated march also returns its segment survivor fraction in aux (0.0 on an
-    empty march, raycast.py:906-914).
+    below an invalid cell's upper bound lowering it. One K2 launch for one
+    map or a batch of maps (a leading axis on every argument): on the card,
+    for whole maps, that launch also builds the pack and the gate and writes
+    the new layers (``cuda_march.exact_cleanup``); elsewhere those steps are
+    :func:`exact_precompute`, :func:`exact_gate` and the update below. The gated
+    march also returns its segment survivor fraction in aux, one per map
+    (0.0 on an empty march, raycast.py:906-914).
 
     On a ``block`` K2 writes only the block's cells, and its gate passes
     only segments that can reach them; ``reduce`` sums the segment counts
     over the processes, so the fraction is that of (process, segment) pairs
     that survive, the work of the whole group."""
+    impl = resolve_exact_impl(cfg)  # an unknown implementation raises here
     if not cfg.enable_visibility_cleanup or cfg.n_ray_steps <= 0:
         return (layers, _no_gate_aux(layers)) if with_aux else layers
-    impl = resolve_exact_impl(cfg)
     if impl != "scan" and layers.dtype.itemsize != 4:
         raise TypeError(
             f"the {impl} exact march requires a 32-bit layer dtype (got {layers.dtype}); "
             "use raycast_exact_impl='scan' for other dtypes"
         )
-    pack = exact_precompute(layers, normal, inlier_cnt, cfg)
-    gate = exact_gate(pack, cfg, block) if impl == "gated" else None
-    res = cuda_march.exact_march(pack, assoc.world, assoc.valid, t.to(pack.dtype), cfg, gate, block)
+    with tracing.span("raycast.exact", stream=layers.is_cuda):
+        if block is None and layers.dim() == 4 and on_card(layers, "the exact cleanup") \
+                and layers.dtype == torch.float32:
+            # whole maps on the card: pack, gate, march and update in K2's one launch
+            spec = cuda_march.Gate(None, _GATE_SEG, _GATE_BLOCK, _GATE_EPS) if impl == "gated" else None
+            out, frac = cuda_march.exact_cleanup(layers, normal, inlier_cnt, assoc.world, assoc.valid,
+                                                 t.to(layers.dtype), cfg, spec)
+            if not with_aux:
+                return out
+            return out, (_no_gate_aux(layers) if frac is None else {"gate_survivor_frac": frac})
+        pack = exact_precompute(layers, normal, inlier_cnt, cfg)
+        gate = exact_gate(pack, cfg, block) if impl == "gated" else None
+        res = cuda_march.exact_march(pack, assoc.world, assoc.valid, t.to(pack.dtype), cfg, gate, block)
 
-    out = layers.reshape(7, -1).clone()
-    out[2] -= res.dec
-    out[1] += res.hits * cfg.outlier_variance
-    wrote = torch.isfinite(res.ubmin)
-    out[5] = torch.where(wrote, res.ubmin, out[5])
-    out[6] = torch.where(wrote, 1.0, out[6])
-    out = out.reshape(layers.shape)
-    if not with_aux:
-        return out
-    if gate is None:
-        return out, _no_gate_aux(layers)
-    counts = res.counts if reduce is None else reduce(res.counts)
-    surv, total = counts[0], counts[1]
-    frac = torch.where(total > 0, surv.to(torch.float32) / torch.clamp(total, min=1).to(torch.float32), 0.0)
-    return out, {"gate_survivor_frac": frac.to(layers.dtype)}
+        lead = layers.shape[:-3]
+        out = layers.reshape(*lead, 7, -1).clone()
+        out[..., 2, :] -= res.dec
+        out[..., 1, :] += res.hits * cfg.outlier_variance
+        wrote = torch.isfinite(res.ubmin)
+        out[..., 5, :] = torch.where(wrote, res.ubmin, out[..., 5, :])
+        out[..., 6, :] = torch.where(wrote, 1.0, out[..., 6, :])
+        out = out.reshape(layers.shape)
+        if not with_aux:
+            return out
+        if gate is None:
+            return out, _no_gate_aux(layers)
+        counts = res.counts if reduce is None else reduce(res.counts)
+        surv, total = counts[..., 0], counts[..., 1]
+        frac = torch.where(total > 0, surv.to(torch.float32) / torch.clamp(total, min=1).to(torch.float32), 0.0)
+        return out, {"gate_survivor_frac": frac.to(layers.dtype)}
 
 
 class AdaptiveExactRouter:

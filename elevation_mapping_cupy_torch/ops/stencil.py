@@ -218,7 +218,7 @@ def surface_normals(
     block = Block.whole(h, w) if block is None else block
     hx = F.pad(map2d[..., :, 1:], (0, 1))
     hy = F.pad(map2d[..., 1:, :], (0, 0, 0, 1))
-    ok = (mask > 0.5) & _neighbor_ok(block, 0, 1, map2d.device) & _neighbor_ok(block, 1, 0, map2d.device)
+    ok = (mask > 0.5) & _normals_ok(block, map2d.device)
     dzdx = hx - map2d
     dzdy = hy - map2d
     nx = -dzdy / resolution
@@ -226,6 +226,14 @@ def surface_normals(
     norm = torch.sqrt(nx * nx + ny * ny + 1.0)
     out = torch.stack([nx / norm, ny / norm, 1.0 / norm], dim=-3)
     return torch.where(ok[..., None, :, :], out, 0.0)
+
+
+@functools.lru_cache(maxsize=64)
+def _normals_ok(block: Block, device: torch.device) -> torch.Tensor:
+    """(h, w) bool: the cells whose neighbours at +1 column and +1 row are
+    both usable (``_neighbor_ok``); built once per block and device, not on
+    every update."""
+    return _neighbor_ok(block, 0, 1, device) & _neighbor_ok(block, 1, 0, device)
 
 
 @functools.lru_cache(maxsize=16)

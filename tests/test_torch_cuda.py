@@ -1300,6 +1300,68 @@ def test_batched_step_on_card_matches_per_map(card):
             assert float(close) >= 0.999, f"map {b} {name}: {float(close)}"
 
 
+@pytest.mark.parametrize("b, aged", [(8, True), (64, False), (64, True)])
+def test_march_kernel_on_a_batch_matches_plain_version_and_each_map(card, b, aged):
+    """K2 on a datagen batch of 100000 rays a map (the cell
+    datagen_exact.b64_ep8's widths), one launch for every map, against its
+    plain version and against one launch a map: hit counts, upper bounds
+    and segment counts equal, the decrement within 2e-4 relative to
+    max(1, |sum|) (float atomics add a cell's decrements in any order).
+    On fresh maps nothing is old enough to be hit (and at this density no
+    ray crosses an invalid cell); maps of 8 steps, aged, are hit."""
+    cfg, _, _, (pack, world, valid, t, gate), _ = torch_scenes.datagen_exact_step(
+        b, 100000, card, steps=8 if aged else 1, aged=aged)
+    assert gate is not None and pack.shape == (b, cfg.cell_n**2, cuda_march.PACK_WIDTH)
+    before = cuda_march.KERNEL.launches
+    got = cuda_march.exact_march(pack, world, valid, t, cfg, gate)
+    torch.cuda.synchronize()
+    assert cuda_march.KERNEL.launches == before + 1
+    want = cuda_march.exact_march_reference(pack, world, valid, t, cfg, gate)
+    _assert_march_equal(got, want, True)
+    assert (float(want.hits.sum()) > 0) == aged and (bool(torch.isfinite(want.ubmin).any()) or not aged)
+    assert bool((got.counts[:, 0] < got.counts[:, 1]).all()) and bool((got.counts[:, 0] > 0).all())
+    for m in range(b):
+        own = cuda_march.exact_march(pack[m], world[m], valid[m], t[m], cfg, gate._replace(table=gate.table[m]))
+        _assert_march_equal(got._replace(**{f: getattr(got, f)[m] for f in got._fields}), own, True)
+
+
+@pytest.mark.parametrize("b, aged, impl", [(1, True, "gated"), (8, True, "gated"), (8, True, "flat"),
+                                           (64, False, "gated"), (64, True, "gated")])
+def test_exact_cleanup_in_one_launch_matches_its_parts(card, b, aged, impl):
+    """The exact cleanup of a datagen batch of 100000 rays a map in K2's
+    one launch (pack, gate, march and update) against the same cleanup
+    composed of its parts: every layer but validity and the survivor
+    fractions bit for bit, validity within 2e-4 (torch_scenes.
+    check_exact_cleanup). Fresh maps are not hit; aged ones are."""
+    cfg, _, _, _, snap = torch_scenes.datagen_exact_step(b, 100000, card, steps=8 if aged else 1, aged=aged)
+    got, aux = torch_scenes.check_exact_cleanup(cfg.replace(raycast_exact_impl=impl), snap, f"B={b} {impl}")
+    layers = snap[0]
+    assert bool((got[:, 1] > layers[:, 1]).any()) == aged
+    frac = aux["gate_survivor_frac"]
+    assert frac.shape == (b,)
+    assert bool(((frac > 0) & (frac < 1)).all()) if impl == "gated" else bool((frac == 1).all())
+
+
+@pytest.mark.parametrize("b", [64, 8])
+def test_batched_exact_step_on_card_matches_cpu(card, b):
+    """A datagen step of ``b`` maps of 100000 points with the exact cleanup
+    (MapConfig(raycast_mode="exact")): K1 twice, K2 and D1 once, D2 and D3
+    never, whatever B is; every field within 1e-4 of the CPU port's step on
+    99.9 % of cells."""
+    from elevation_mapping_cupy_torch.nn.traversability import default_weights
+    from elevation_mapping_cupy_torch.parallel import batched_update
+    from elevation_mapping_cupy_torch.state import MapState, state_to_numpy
+
+    cfg, args, state, _, _ = torch_scenes.datagen_exact_step(b, 100000, card, steps=8, aged=True)
+    before = _counts()
+    out = batched_update(state, *args)
+    _launched(before, 2, 1, 1, 0)
+    on_cpu = batched_update(MapState(*(x.cpu() for x in state)), *(x.cpu() for x in args[:6]), default_weights(),
+                            cfg)
+    torch_scenes.share_within(f"exact step B={b} on the CPU", state_to_numpy(out), state_to_numpy(on_cpu),
+                               torch_scenes.CMP_ATOL, torch_scenes.CMP_MIN_SHARE)
+
+
 def test_batched_move_to_on_card_is_bitwise(card):
     from elevation_mapping_cupy_torch.parallel import batched_move_to, init_batch
     from elevation_mapping_cupy_torch.state import take_map

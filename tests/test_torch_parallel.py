@@ -212,8 +212,8 @@ def test_polar_evaluation_in_chunks_equals_one_pass(monkeypatch, rng):
 
 
 def test_exact_batch_matches_jax(rng):
-    """raycast_mode="exact" under a batch (one K2 launch per map): every
-    field within 1e-5 of JAX's batched_update."""
+    """raycast_mode="exact" under a batch (one K2 launch for every map):
+    every field within 1e-5 of JAX's batched_update."""
     jnp, JaxConfig, jpar, jtrav = _jax()
     kw = dict(CFG_KW, raycast_mode="exact")
     jcfg, cfg = JaxConfig(**kw), MapConfig(**kw)

@@ -476,6 +476,88 @@ def march_inputs(state, cfg, n_rays: int, rng, gated: bool, pose: int = 21):
     return pack, assoc.world, assoc.valid, t_c, gate
 
 
+def datagen_exact_step(b: int, n: int, device, steps: int = 1, aged: bool = False):
+    """A datagen batch of ``b`` maps of ``n`` points on the default map with
+    the exact cleanup (the cell ``datagen_exact.b64_ep8``'s widths): fresh
+    maps through ``steps`` batched steps, each with new terrains (step i's
+    clouds from generator seed i), the last one's cleanup inputs recorded.
+    ``aged`` passes the recency gate (7 time updates) before the last step,
+    so that its march can hit the cells the earlier steps mapped. Returns
+    (config, the last step's arguments after the state, the state before
+    it, K2's (pack, world, valid, t, gate) built from the recorded inputs by
+    the plain parts, the recorded cleanup's (layers, normal, point
+    association, inlier counts, sensor position))."""
+    from elevation_mapping_cupy_torch import MapConfig, core
+    from elevation_mapping_cupy_torch.nn.traversability import default_weights
+    from elevation_mapping_cupy_torch.ops import raycast
+    from elevation_mapping_cupy_torch.parallel import batched_update, init_batch
+    from elevation_mapping_cupy_torch.runtime import datagen
+
+    cfg = MapConfig(max_points=n, raycast_mode="exact")
+    weights = default_weights().to(device)
+
+    def step_args(i):
+        pts, t, _ = datagen.make_batch_clouds(datagen.make_generator(i, device), b, cfg.cell_n, cfg.resolution, n)
+        z = torch.zeros(b, device=device)
+        return (pts, torch.ones((b, n), dtype=torch.bool, device=device),
+                torch.eye(3, device=device).expand(b, 3, 3).contiguous(), t, z, z, weights, cfg)
+
+    state = init_batch(cfg, b, device)
+    for i in range(steps - 1):
+        state = batched_update(state, *step_args(i))
+    if aged:
+        for _ in range(7):
+            state = core.update_time(state, cfg)
+    args = step_args(steps - 1)
+    seen, cleanup = [], raycast.visibility_cleanup_exact
+
+    def recording(layers, normal, assoc, inlier_cnt, t_, *rest, **kw):
+        seen.append((layers, normal, assoc, inlier_cnt, t_))
+        return cleanup(layers, normal, assoc, inlier_cnt, t_, *rest, **kw)
+
+    raycast.visibility_cleanup_exact = recording
+    try:
+        batched_update(state, *args)
+    finally:
+        raycast.visibility_cleanup_exact = cleanup
+    if len(seen) != 1:
+        raise AssertionError(f"datagen exact step B={b}: {len(seen)} cleanups in one step")
+    layers, normal, assoc, inlier_cnt, t = seen[0]
+    pack = raycast.exact_precompute(layers, normal, inlier_cnt, cfg)
+    return cfg, args, state, (pack, assoc.world, assoc.valid, t, raycast.exact_gate(pack, cfg)), seen[0]
+
+
+def check_exact_cleanup(cfg, snap, label: str):
+    """The exact cleanup of whole maps on the card in one K2 launch
+    (``cuda_march.exact_cleanup``) against the same cleanup composed of its
+    parts (``visibility_cleanup_exact`` on the whole map as a block: the
+    pack, the gate and the update in PyTorch around K2 on the pack): every
+    layer but validity and the survivor fractions equal, validity within
+    VALUE_TOL of max(1, |decrement|) (float atomics add a cell's decrements
+    in any order). Returns the one-launch cleanup's (layers, aux)."""
+    from elevation_mapping_cupy_torch.ops import cuda_march as cm, raycast
+    from elevation_mapping_cupy_torch.ops.geometry import Block
+
+    layers, normal, assoc, inlier_cnt, t = snap
+    before = cm.KERNEL.launches
+    got, aux = raycast.visibility_cleanup_exact(layers, normal, assoc, inlier_cnt, t, cfg, with_aux=True)
+    torch.cuda.synchronize()
+    if cm.KERNEL.launches != before + 1:
+        raise AssertionError(f"{label}: {cm.KERNEL.launches - before} K2 launches")
+    want, want_aux = raycast.visibility_cleanup_exact(layers, normal, assoc, inlier_cnt, t, cfg, with_aux=True,
+                                                      block=Block.whole(cfg.cell_n, cfg.cell_n))
+    for row in (0, 1, 3, 4, 5, 6):
+        if not torch.equal(got[:, row], want[:, row]):
+            raise AssertionError(f"{label}: layer {row} differs in {int((got[:, row] != want[:, row]).sum())} cells")
+    dec = (layers[:, 2] - want[:, 2]).abs().clamp(min=1.0)
+    rel = float(((got[:, 2] - want[:, 2]).abs() / dec).max())
+    if rel > VALUE_TOL:
+        raise AssertionError(f"{label}: validity off by {rel} (relative) > {VALUE_TOL}")
+    if not torch.equal(aux["gate_survivor_frac"], want_aux["gate_survivor_frac"]):
+        raise AssertionError(f"{label}: survivor fractions {aux} vs {want_aux}")
+    return got, aux
+
+
 def check_block_march(state, cfg, world, valid, t, blk, gated: bool, whole, label: str) -> dict:
     """K2 with block bounds against its plain version on the same block,
     and against ``whole``, the unblocked launch: the block's hit counts and
@@ -573,15 +655,15 @@ def k1_shapes():
 
 @contextlib.contextmanager
 def k2_shapes():
-    """Records the (rays, block rows, block columns, gated) of every K2 call
-    made inside."""
+    """Records the (rays a map, block rows, block columns, gated) of every
+    K2 call made inside."""
     from elevation_mapping_cupy_torch.ops import cuda_march as cm, raycast
 
     shapes, march = set(), cm.exact_march
 
     def recording(pack, world, valid, t, cfg, gate=None, block=None):
         h, w = (cfg.cell_n, cfg.cell_n) if block is None else (block.h, block.w)
-        shapes.add((int(world.shape[0]), h, w, gate is not None))
+        shapes.add((int(world.shape[-2]), h, w, gate is not None))
         return march(pack, world, valid, t, cfg, gate, block)
 
     raycast.cuda_march.exact_march = recording
