@@ -30,7 +30,12 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              min-slope pyramid) and datagen's step (B = 8 and 64, R 72);
              channels 0 and 3-6 bit for bit, 1 and 2 within 1e-5 of
              max(1, |plain|). D3 (``polar_scan``) bit for bit on the
-             cube K1 bins in the same updates (robot, B = 8 and 64). K2 (``exact_march``) on the robot's map of 22
+             cube K1 bins in the same updates (robot, B = 8 and 64). D4
+             (``points_associate``) and D5 (``points_fuse``) bit for bit
+             (D4's error sums within 1e-6) on a made-up cloud and map at
+             the robot's shape (B = 1 of 131072 points on the deployed map)
+             and datagen's (B = 64 maps of 100000 points on the default
+             map). K2 (``exact_march``) on the robot's map of 22
              updates, aged, for 131072 and 1048576 rays, gate on and off
              (the same on the map before it is aged: the gated march against
              the flat one on a fresh map); then one launch for datagen_exact's
@@ -49,10 +54,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
              datagen's B = 64 and of B = 8 maps of 100000 points on the
              default map (after one warm-up step). The same inputs through
              the CPU port: every layer within 1e-4 on 99.9 % of cells. Each
-             path must launch K1 three times, D1, D2 and D3 once and K2 never.
+             path must launch K1 three times, D1 to D5 once and K2 never.
              Then one step of 64 maps with the exact cleanup, on maps of 7
              steps aged past the recency gate, against the CPU port: K1
-             twice, K2 and D1 once, D2 and D3 never.
+             twice, K2, D1, D4 and D5 once, D2 and D3 never.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them, the one before it the kernels line, and the last line is
@@ -466,6 +471,60 @@ def phase_polar(cfg) -> tuple:
     return scans, evaluations
 
 
+def point_stage_bytes(b: int, n: int, masked: int, edge_sharpen: bool) -> tuple:
+    """D4's and D5's compulsory bytes: each point's input read once (D4: its
+    xyz and pad flag; D5: z, noise, index, mask and the cell's height and
+    variance), the cells' values gathered (D4: four layers a point; D5: the
+    point count a point under the mask, with edge sharpening) and the
+    outputs written once (D4: world, noise, index, three flags, two streams,
+    height and variance, 39 bytes; D5: four streams and the active flag)."""
+    d4 = b * n * (12 + 1 + 16 + 39)
+    d5 = b * n * (4 + 4 + 4 + 1 + 8 + 17) + (4 * masked if edge_sharpen else 0)
+    return d4, d5
+
+
+def check_point_stage_case(label: str, cfg, b: int, n: int) -> list:
+    """D4 and D5 against their plain versions on the card at one shape
+    (``scenes.check_point_stages``), then each kernel's time beside its
+    plain version's and its bound. Returns one case a kernel."""
+    from elevation_mapping_cupy_torch.ops import point_stages as ps
+    from elevation_mapping_cupy_torch.ops import pointcloud as pc
+    from elevation_mapping_cupy_torch.ops import scatter
+
+    inputs = scenes.point_stage_inputs(cfg, b, n, "cuda", seed=23)
+    res = scenes.check_point_stages(label, cfg, inputs)
+    stage = ps.associate(*inputs, cfg)
+    h, w = inputs[4].shape[-2:]
+    sums = scatter.scatter_add_streams_2d(h, w, stage.assoc.flat_idx, stage.counted, stage.assoc.mask)
+    counts = pc.ErrorCounts(sums[:, 0], sums[:, 1], stage.error_sum, stage.error_cnt)
+    h_delta = torch.full((b,), 0.01, device="cuda")
+    bounds = point_stage_bytes(b, n, res["masked"], cfg.enable_edge_sharpen)
+    calls = (("points_associate", lambda: ps.associate(*inputs, cfg), lambda: ps._associate(*inputs, cfg)),
+             ("points_fuse", lambda: ps.fuse(stage, h_delta, counts.point_cnt, cfg),
+              lambda: ps._fuse(stage, h_delta, counts.point_cnt, cfg)))
+    cases = []
+    iters = 10 if b > 8 else 50
+    for (name, kernel, plain), bytes_moved in zip(calls, bounds):
+        case = dict(res, case=f"{label} {name}", kernel=name, bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3)
+        case["kernel_ms"] = _events_ms(kernel, iters)
+        case["device_ms"], case["device_ops_ms"] = _device_ms(kernel, iters)
+        case["share_of_bound"] = case["bound_ms"] / case["device_ms"]
+        case["plain_ms"] = _events_ms(plain, iters)
+        case["library_ms"] = None  # no PyTorch call computes either stage
+        log("point stage check: " + json.dumps(case))
+        cases.append(case)
+    return cases
+
+
+def phase_point_stages(cfg) -> list:
+    """D4 and D5 at the robot's shape (the deployed map, B = 1 of
+    MAIN_POINTS) and datagen's (the default map, B = 64 of BATCH_POINTS)."""
+    from elevation_mapping_cupy_torch import MapConfig
+
+    return (check_point_stage_case("robot update", cfg, 1, MAIN_POINTS)
+            + check_point_stage_case("datagen step B=64", MapConfig(), 64, BATCH_POINTS))
+
+
 def check_march_case(state, cfg, rng, n_rays: int, gated: bool, aged: bool = True) -> dict:
     """K2 against its plain version on the card at one shape; returns the
     measured numbers. On a map that is not ``aged`` past the recency gate no
@@ -603,9 +662,9 @@ def phase_march_batch() -> list:
 # each path's launches of each kernel: a polar update or step, and an
 # exact one
 PATH_LAUNCHES = {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1, "polar_evaluate": 1,
-                 "polar_scan": 1}
+                 "polar_scan": 1, "points_associate": 1, "points_fuse": 1}
 EXACT_PATH_LAUNCHES = {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1, "polar_evaluate": 0,
-                       "polar_scan": 0}
+                       "polar_scan": 0, "points_associate": 1, "points_fuse": 1}
 
 
 def _counted(regs, tag: str, fn, want=PATH_LAUNCHES):
@@ -718,14 +777,15 @@ def _timed_cases(cases: list, keys) -> list:
 
 
 def kernels_line(scatter_cases: list, march_cases: dict, dilation_cases: list, polar_cases: list,
-                 scan_cases: list, paths: dict, batch_cases: list) -> dict:
+                 scan_cases: list, paths: dict, batch_cases: list, stage_cases: list) -> dict:
     """One entry per kernel. K1's numbers are those of one robot update's
     three launches at the main path's cloud size (error counting, fusion,
     cube), summed, with every timed case under ``cases``; its
     ``max_abs_err`` is the largest of them. K2's are those of the gated march
     of MAIN_POINTS rays (the router's first choice). The dilation's, the
-    polar evaluation's and the polar scan's are those of the robot's
-    update, with every case under ``cases``. ``launches`` is the kernel's
+    polar evaluation's, the polar scan's, the association's and the
+    fusion's are those of the robot's update, with every case under
+    ``cases``. ``launches`` is the kernel's
     launches in the robot's counted frame (the main path), ``launches_by_path`` those in each path
     of the paths phase, each counted from 0. ``ms`` is the call as its caller pays for it, ``device_ms`` the device's
     own time."""
@@ -742,6 +802,11 @@ def kernels_line(scatter_cases: list, march_cases: dict, dilation_cases: list, p
                 "max_abs_err": max_err, "ms": head["kernel_ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head.get("bound_by", "bytes"),
                 "library_ms": head["library_ms"], "cases": cases}
+
+    def stage_entry(name, function):
+        cases = [c for c in stage_cases if c["kernel"] == name]
+        return entry(name, "point_stages.cu", None, function, 0.0, cases[0],
+                     _timed_cases(cases, ("case", "B", "N", "kernel_ms", "device_ms", "bound_ms", "plain_ms")))
 
     k1_head = {key: total(key) for key in ("kernel_ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
     return {"kernels": [
@@ -762,7 +827,8 @@ def kernels_line(scatter_cases: list, march_cases: dict, dilation_cases: list, p
         entry("polar_scan", "polar_scan.cu", None, "ops/raycast.py::_polar_scan", 0.0, scan_cases[0],
               _timed_cases(scan_cases, ("case", "B", "R", "S", "kernel_ms", "device_ms", "device_ms_per_map",
                                         "bound_ms", "plain_ms", "plain_ms_per_map"))),
-    ]}
+    ] + [stage_entry(name, function) for name, function in (("points_associate", "ops/point_stages.py::_associate"),
+                                                            ("points_fuse", "ops/point_stages.py::_fuse"))]}
 
 
 def main(argv=None) -> int:
@@ -783,16 +849,18 @@ def main(argv=None) -> int:
     scatter_cases = timed("kernels (scatter)", phase_scatter, cfg)
     dilation_cases = timed("kernels (dilation)", phase_dilation, cfg)
     scan_cases, polar_cases = timed("kernels (polar scan and evaluation)", phase_polar, cfg)
+    stage_cases = timed("kernels (point stages)", phase_point_stages, cfg)
     march_cases, fresh_cases = timed("kernels (exact march)", phase_march, cfg)
     batch_cases = timed("kernels (exact march, batched)", phase_march_batch)
     paths = timed("paths", phase_paths, regs)
     log(f"total: {time.perf_counter() - t0:.1f} s")
-    line = kernels_line(scatter_cases, march_cases, dilation_cases, polar_cases, scan_cases, paths, batch_cases)
+    line = kernels_line(scatter_cases, march_cases, dilation_cases, polar_cases, scan_cases, paths, batch_cases,
+                        stage_cases)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({
                 "card": smi, "kernels_line": line, "scatter_cases": scatter_cases, "dilation_cases": dilation_cases,
-                "polar_cases": polar_cases, "scan_cases": scan_cases,
+                "polar_cases": polar_cases, "scan_cases": scan_cases, "stage_cases": stage_cases,
                 "march_cases": list(march_cases.values()) + list(fresh_cases.values()) + batch_cases,
                 "paths": paths,
             }, f, indent=1)

@@ -4,9 +4,9 @@ PyTorch counterpart of ``elevation_mapping_cupy_tpu/core.py``: the
 geometric update, the same update with semantic channels, the image path
 and the maintenance steps. Every function takes a ``MapState`` and returns
 a new one; the input state's tensors are not written. The state's device
-decides where the work runs: on a CUDA state the scatters launch kernel K1
-and the exact cleanup kernel K2, on a CPU state they take their plain
-versions.
+decides where the work runs: on a CUDA state the scatters launch kernel K1,
+the per-point chain around them D4 and D5 and the exact cleanup kernel K2,
+on a CPU state they take their plain versions.
 
 A state may also be a batch of B independent maps (a leading axis on every
 field, ``state.init_batch``), with the same leading axis on its per-map
@@ -33,10 +33,11 @@ from . import tracing
 from .config import MapConfig
 from .nn.traversability import TravFilter
 from .ops import image as img_ops
+from .ops import point_stages
 from .ops import pointcloud as pc
 from .ops import raycast as rc
-from .ops import stencil
-from .ops.geometry import associate_points, true_div
+from .ops import scatter, stencil
+from .ops.geometry import PointAssociation, associate_points, true_div
 from .semantic.update import reset_sem_new, resolve_channels, update_semantic_pointcloud
 from .state import MapState, stack_tensors, take_map
 
@@ -180,34 +181,12 @@ def update_batch_aux(
     # the stages: host spans, timed on the stream too while a profiler runs
     on_card = dev.type == "cuda"
 
-    with tracing.span("core.associate", stream=on_card):
-        t_c = t - state.center            # shift_translation_to_map_center
-        assoc = associate_points(points[..., :3], pad_mask, R, t_c, cfg, block)
-        layers = state.layers
-        # one shared row-gather of the point cells feeds both stages
-        cell_rows = pc.gather_cell_rows(layers, assoc.flat_idx)
-    with tracing.span("core.error_counting", stream=on_card):
-        if shard is None:
-            counts = pc.error_counting(layers, assoc, cfg, cell_rows)
-        else:
-            counts = pc.error_counting(layers, assoc, cfg, cell_rows, owned=shard.owns(assoc.flat_idx))
-            sums = shard.sum(torch.stack([counts.error_sum.double(), counts.error_cnt.double()]))
-            counts = counts._replace(error_sum=sums[0].to(dt), error_cnt=sums[1].to(counts.error_cnt.dtype))
-    with tracing.span("core.drift", stream=on_card):
-        layers, mean_error, additive, h_delta = pc.apply_drift_compensation(
-            layers,
-            counts,
-            position_noise,
-            orientation_noise,
-            state.mean_error,
-            state.additive_mean_error,
-            cfg,
-        )
-    # fusion decisions read the drift-compensated snapshot (R1)
-    with tracing.span("core.fusion", stream=on_card):
-        layers, newmap = pc.point_fusion(layers, assoc, counts.point_cnt, cfg, cell_rows, h_delta)
+    t_c = t - state.center  # shift_translation_to_map_center
+    args = (state, points, pad_mask, R, t_c, position_noise, orientation_noise, cfg, on_card)
+    fused = _fuse_points(*args) if shard is None else _fuse_points_sharded(*args, shard)
+    assoc, inlier_cnt, layers, newmap, mean_error, additive = fused
     layers, ray_aux = rc.visibility_cleanup(
-        layers, state.normal, assoc, counts.inlier_cnt, t_c, cfg, with_aux=True,
+        layers, state.normal, assoc, inlier_cnt, t_c, cfg, with_aux=True,
         block=block, reduce=None if shard is None else shard.sum,
     )
     with tracing.span("core.average", stream=on_card):
@@ -255,6 +234,69 @@ def update_batch_aux(
         additive_mean_error=additive,
     )
     return out, ray_aux
+
+
+class _Fused(NamedTuple):
+    """What the per-point stages of an update hand on to the cleanup."""
+
+    assoc: PointAssociation
+    inlier_cnt: torch.Tensor  # (B, H, W) drift-compensation inliers per cell
+    layers: torch.Tensor      # after the drift compensation and the fusion
+    newmap: torch.Tensor      # (B, 3, H, W) the fusion's sums for average_map
+    mean_error: torch.Tensor
+    additive: torch.Tensor
+
+
+def _drift(state, layers, counts, position_noise, orientation_noise, cfg, on_card):
+    with tracing.span("core.drift", stream=on_card):
+        return pc.apply_drift_compensation(
+            layers, counts, position_noise, orientation_noise, state.mean_error, state.additive_mean_error, cfg
+        )
+
+
+def _fuse_points(state, points, pad_mask, R, t_c, position_noise, orientation_noise, cfg, on_card) -> _Fused:
+    """Association, error counting, drift compensation and Kalman fusion of
+    whole maps: on the card D4, K1, D5 and K1 (``ops/point_stages.py``),
+    the plain versions of D4 and D5 on the CPU."""
+    h, w = state.layers.shape[-2:]
+    with tracing.span("core.associate", stream=on_card):
+        stage = point_stages.associate(points, pad_mask, R, t_c, state.layers, cfg)
+        assoc = stage.assoc
+    with tracing.span("core.error_counting", stream=on_card):
+        sums = scatter.scatter_add_streams_2d(h, w, assoc.flat_idx, stage.counted, assoc.mask)
+        counts = pc.ErrorCounts(sums[:, 0], sums[:, 1], stage.error_sum, stage.error_cnt)
+    layers, mean_error, additive, h_delta = _drift(
+        state, state.layers, counts, position_noise, orientation_noise, cfg, on_card
+    )
+    # fusion decisions read the drift-compensated snapshot (R1)
+    with tracing.span("core.fusion", stream=on_card):
+        streams, active = point_stages.fuse(stage, h_delta, counts.point_cnt, cfg)
+        layers, newmap = pc.fusion_apply(layers, scatter.scatter_add_multi(h * w, assoc.flat_idx, streams, active), cfg)
+    return _Fused(assoc, counts.inlier_cnt, layers, newmap, mean_error, additive)
+
+
+def _fuse_points_sharded(state, points, pad_mask, R, t_c, position_noise, orientation_noise, cfg, on_card,
+                         shard) -> _Fused:
+    """:func:`_fuse_points` on one process's block of a sharded map, in
+    eager stages: the association localised to the block, the error sums
+    over the points this process owns and joined over the shard."""
+    dt = state.layers.dtype
+    with tracing.span("core.associate", stream=on_card):
+        assoc = associate_points(points[..., :3], pad_mask, R, t_c, cfg, shard.block)
+        layers = state.layers
+        # one shared row-gather of the point cells feeds both stages
+        cell_rows = pc.gather_cell_rows(layers, assoc.flat_idx)
+    with tracing.span("core.error_counting", stream=on_card):
+        counts = pc.error_counting(layers, assoc, cfg, cell_rows, owned=shard.owns(assoc.flat_idx))
+        sums = shard.sum(torch.stack([counts.error_sum.double(), counts.error_cnt.double()]))
+        counts = counts._replace(error_sum=sums[0].to(dt), error_cnt=sums[1].to(counts.error_cnt.dtype))
+    layers, mean_error, additive, h_delta = _drift(
+        state, layers, counts, position_noise, orientation_noise, cfg, on_card
+    )
+    # fusion decisions read the drift-compensated snapshot (R1)
+    with tracing.span("core.fusion", stream=on_card):
+        layers, newmap = pc.point_fusion(layers, assoc, counts.point_cnt, cfg, cell_rows, h_delta)
+    return _Fused(assoc, counts.inlier_cnt, layers, newmap, mean_error, additive)
 
 
 @torch.no_grad()

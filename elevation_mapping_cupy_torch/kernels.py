@@ -159,7 +159,7 @@ def on_card(x: torch.Tensor, what: str) -> bool:
 
 def registered_kernels() -> Dict[str, CudaKernel]:
     """Every kernel of the package, by name (imports the modules that own them)."""
-    from .ops import cuda_march, cuda_scatter, raycast, stencil
+    from .ops import cuda_march, cuda_scatter, point_stages, raycast, stencil
 
     return {k.name: k for k in (cuda_scatter.KERNEL, cuda_march.KERNEL, stencil.KERNEL, raycast.KERNEL,
-                                raycast.SCAN_KERNEL)}
+                                raycast.SCAN_KERNEL, point_stages.ASSOCIATE_KERNEL, point_stages.FUSE_KERNEL)}

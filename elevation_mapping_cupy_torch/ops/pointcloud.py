@@ -27,8 +27,12 @@ from .geometry import Block, PointAssociation
 __all__ = [
     "ErrorCounts",
     "gather_cell_rows",
+    "drift_inliers",
+    "error_sums",
     "error_counting",
     "apply_drift_compensation",
+    "fusion_proposals",
+    "fusion_apply",
     "point_fusion",
     "average_map",
     "clear_overlap",
@@ -54,6 +58,31 @@ def gather_cell_rows(layers: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(rows, -2, idx.long()[..., None].expand(*idx.shape, layers.shape[-3]))
 
 
+def drift_inliers(cell_rows: torch.Tensor, assoc: PointAssociation, cfg: MapConfig) -> torch.Tensor:
+    """(..., N) the points the drift compensation counts: under the mask,
+    on a valid cell of low variance and high traversability, within the
+    Mahalanobis band of its height. ``cell_rows`` (..., N, L) as
+    :func:`gather_cell_rows` gives them."""
+    map_h = cell_rows[..., 0]
+    map_v = cell_rows[..., 1]
+    map_valid = cell_rows[..., 2]
+    map_t = cell_rows[..., 3]
+    z = assoc.world[..., 2]
+    return (
+        assoc.mask
+        & (map_valid > 0.5)
+        & (torch.abs(map_h - z) < map_v * cfg.mahalanobis_thresh)
+        & (map_v < cfg.drift_compensation_variance_inlier / 2.0)
+        & (map_t > cfg.traversability_inlier)
+    )
+
+
+def error_sums(counted: torch.Tensor, z: torch.Tensor, map_h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per map, the sum of ``z - map_h`` over the ``counted`` points and
+    their number (integer)."""
+    return torch.sum(torch.where(counted, z - map_h, 0.0), dim=-1), torch.sum(counted, dim=-1)
+
+
 def error_counting(
     layers: torch.Tensor,
     assoc: PointAssociation,
@@ -66,32 +95,18 @@ def error_counting(
     the points whose cell this process owns: each point once over the
     processes of a sharded map)."""
     h, w = layers.shape[-2:]
-    j = assoc.flat_idx
     if cell_rows is None:
-        cell_rows = gather_cell_rows(layers, j)
-    map_h = cell_rows[..., 0]
-    map_v = cell_rows[..., 1]
-    map_valid = cell_rows[..., 2]
-    map_t = cell_rows[..., 3]
-    z = assoc.world[..., 2]
-
-    inlier = (
-        assoc.mask
-        & (map_valid > 0.5)
-        & (torch.abs(map_h - z) < map_v * cfg.mahalanobis_thresh)
-        & (map_v < cfg.drift_compensation_variance_inlier / 2.0)
-        & (map_t > cfg.traversability_inlier)
-    )
+        cell_rows = gather_cell_rows(layers, assoc.flat_idx)
+    inlier = drift_inliers(cell_rows, assoc, cfg)
     sums = scatter.scatter_add_streams_2d(
         h,
         w,
-        j,
+        assoc.flat_idx,
         [inlier.to(layers.dtype), assoc.mask.to(layers.dtype)],
         assoc.mask,
     )
     counted = inlier if owned is None else inlier & owned
-    error_sum = torch.sum(torch.where(counted, z - map_h, 0.0), dim=-1)
-    error_cnt = torch.sum(counted, dim=-1)
+    error_sum, error_cnt = error_sums(counted, assoc.world[..., 2], cell_rows[..., 0])
     return ErrorCounts(
         inlier_cnt=sums[..., 0, :, :],
         point_cnt=sums[..., 1, :, :],
@@ -131,6 +146,64 @@ def apply_drift_compensation(
     return layers, mean_error, additive, delta
 
 
+def fusion_proposals(
+    map_h: torch.Tensor,
+    map_v: torch.Tensor,
+    z: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor,
+    pc: torch.Tensor,
+    cfg: MapConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-point Kalman proposals and outlier decisions (custom_kernels.py:
+    160-196) from each point's cell height and variance (drift-compensated),
+    its height and noise, its mask and its cell's point count ``pc``, all
+    (..., N). Returns K1's streams (..., 4, N) = [fuse new_h, fuse new_v,
+    fuse, outlier] and their active mask fuse | outlier (a point is either a
+    fused inlier or an outlier, never both)."""
+    outlier = mask & (torch.abs(map_h - z) > map_v * cfg.mahalanobis_thresh)
+    edge_skip = torch.zeros_like(outlier)
+    if cfg.enable_edge_sharpen:
+        edge_skip = (pc > cfg.wall_num_thresh) & (
+            z < map_h - map_v * cfg.mahalanobis_thresh / torch.clamp(pc, min=1e-12)
+        )
+    fuse = mask & ~outlier & ~edge_skip
+
+    new_h = (map_h * v + z * map_v) / (map_v + v)
+    new_v = (map_v * v) / (map_v + v)
+    streams = torch.stack(
+        [
+            torch.where(fuse, new_h, 0.0),
+            torch.where(fuse, new_v, 0.0),
+            fuse.to(new_h.dtype),
+            outlier.to(new_h.dtype),  # x outlier_variance applied in fusion_apply
+        ],
+        dim=-2,
+    )
+    return streams, fuse | outlier
+
+
+def fusion_apply(layers: torch.Tensor, sums: torch.Tensor, cfg: MapConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-cell half of the fusion: ``sums`` (..., 4, H*W) are K1's sums
+    of :func:`fusion_proposals`' streams. Returns (updated layers, newmap
+    (..., 3, H, W) = [sum new_h, sum new_v, count])."""
+    h, w = layers.shape[-2:]
+    out_var = sums[..., 3, :] * cfg.outlier_variance
+
+    sum_h, cnt = sums[..., 0, :], sums[..., 2, :]
+    has = cnt > 0
+    mean_h = sum_h / torch.clamp(cnt, min=1.0)
+
+    flat = layers.flatten(-2).clone()  # (..., 7, H*W)
+    flat[..., 1, :] += out_var
+    flat[..., 2, :] = torch.where(has, 1.0, flat[..., 2, :])
+    flat[..., 4, :] = torch.where(has, 0.0, flat[..., 4, :])
+    flat[..., 5, :] = torch.where(has, mean_h, flat[..., 5, :])  # R2
+    flat[..., 6, :] = torch.where(has, 0.0, flat[..., 6, :])
+    newmap = sums[..., :3, :].reshape(*sums.shape[:-2], 3, h, w)
+    return flat.reshape(layers.shape), newmap
+
+
 def point_fusion(
     layers: torch.Tensor,
     assoc: PointAssociation,
@@ -149,8 +222,6 @@ def point_fusion(
     h, w = layers.shape[-2:]
     flat = layers.flatten(-2)  # (..., 7, H*W)
     j = assoc.flat_idx
-    z = assoc.world[..., 2]
-    v = assoc.noise
     if cell_rows is None:
         map_h = _gather_cells(flat[..., 0, :], j)
         map_v = _gather_cells(flat[..., 1, :], j)
@@ -158,44 +229,8 @@ def point_fusion(
         map_h = cell_rows[..., 0] + (h_delta[..., None] if h_delta is not None else 0.0)
         map_v = cell_rows[..., 1]
     pc = _gather_cells(point_cnt.flatten(-2), j)
-
-    outlier = assoc.mask & (torch.abs(map_h - z) > map_v * cfg.mahalanobis_thresh)
-    edge_skip = torch.zeros_like(outlier)
-    if cfg.enable_edge_sharpen:
-        edge_skip = (pc > cfg.wall_num_thresh) & (
-            z < map_h - map_v * cfg.mahalanobis_thresh / torch.clamp(pc, min=1e-12)
-        )
-    fuse = assoc.mask & ~outlier & ~edge_skip
-
-    new_h = (map_h * v + z * map_v) / (map_v + v)
-    new_v = (map_v * v) / (map_v + v)
-    # one scatter for the fused sums and the outlier count: a point is either
-    # a fused inlier or an outlier, never both
-    sums = scatter.scatter_add_multi(
-        h * w,
-        j,
-        [
-            torch.where(fuse, new_h, 0.0),
-            torch.where(fuse, new_v, 0.0),
-            fuse.to(new_h.dtype),
-            outlier.to(new_h.dtype),  # x outlier_variance applied below
-        ],
-        fuse | outlier,
-    )
-    out_var = sums[..., 3, :] * cfg.outlier_variance
-
-    sum_h, sum_v, cnt = sums[..., 0, :], sums[..., 1, :], sums[..., 2, :]
-    has = cnt > 0
-    mean_h = sum_h / torch.clamp(cnt, min=1.0)
-
-    flat = flat.clone()
-    flat[..., 1, :] += out_var
-    flat[..., 2, :] = torch.where(has, 1.0, flat[..., 2, :])
-    flat[..., 4, :] = torch.where(has, 0.0, flat[..., 4, :])
-    flat[..., 5, :] = torch.where(has, mean_h, flat[..., 5, :])  # R2
-    flat[..., 6, :] = torch.where(has, 0.0, flat[..., 6, :])
-    newmap = sums[..., :3, :].reshape(*sums.shape[:-2], 3, h, w)
-    return flat.reshape(layers.shape), newmap
+    streams, active = fusion_proposals(map_h, map_v, assoc.world[..., 2], assoc.noise, assoc.mask, pc, cfg)
+    return fusion_apply(layers, scatter.scatter_add_multi(h * w, j, streams, active), cfg)
 
 
 def average_map(layers: torch.Tensor, newmap: torch.Tensor, cfg: MapConfig) -> torch.Tensor:

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import contextvars
 import math
-from typing import Sequence
+from typing import Sequence, Union
 
 import torch
 
@@ -52,23 +52,28 @@ def _masked(idx: torch.Tensor, values: torch.Tensor, mask: torch.Tensor, neutral
 
 
 def scatter_add_multi(
-    n_cells: int, idx: torch.Tensor, values: Sequence[torch.Tensor], mask: torch.Tensor
+    n_cells: int, idx: torch.Tensor, values: Union[Sequence[torch.Tensor], torch.Tensor], mask: torch.Tensor
 ) -> torch.Tensor:
     """Scatter several per-point value streams with one shared index set, in
-    one kernel launch. ``idx``, ``mask`` and each value stream are (..., N);
+    one kernel launch. ``idx``, ``mask`` and each value stream are (..., N),
+    the K streams given as a sequence or already stacked, (..., K, N);
     returns (..., K, n_cells) float32, the leading axes a batch of maps that
     K1 takes in the same launch. The kernel skips masked points, so their
     index and values are never read."""
     lead = idx.shape[:-1]
     n = idx.shape[-1]
-    vals = torch.stack([v.to(torch.float32) for v in values], dim=-2)  # (..., K, N)
+    if isinstance(values, torch.Tensor):
+        vals = values.to(torch.float32)
+    else:
+        vals = torch.stack([v.to(torch.float32) for v in values], dim=-2)  # (..., K, N)
+    k = vals.shape[-2]
     out = cuda_scatter.scatter_add_streams(
         idx.to(torch.int32).reshape(-1, n).contiguous(),
         mask.reshape(-1, n).contiguous(),
-        vals.reshape(-1, len(values), n),
+        vals.reshape(-1, k, n),
         n_cells,
     )
-    return out.reshape(*lead, len(values), n_cells)
+    return out.reshape(*lead, k, n_cells)
 
 
 def scatter_add(n_cells: int, idx: torch.Tensor, values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -80,10 +85,11 @@ def scatter_add_streams_2d(
     h: int,
     w: int,
     flat_idx: torch.Tensor,
-    values: Sequence[torch.Tensor],
+    values: Union[Sequence[torch.Tensor], torch.Tensor],
     mask: torch.Tensor,
 ) -> torch.Tensor:
-    """Scatter K per-point streams into an (h, w) grid; returns (..., K, h, w).
+    """Scatter K per-point streams (a sequence, or stacked (..., K, N)) into
+    an (h, w) grid; returns (..., K, h, w).
 
     K1 adds every stream in float32 (integer streams exactly below 2^24),
     so unlike the JAX package's MXU kernel it takes no ``exact`` flags.
@@ -104,7 +110,7 @@ def scatter_add_streams_2d_local(
     h: int,
     w: int,
     flat_idx: torch.Tensor,
-    values: Sequence[torch.Tensor],
+    values: Union[Sequence[torch.Tensor], torch.Tensor],
     mask: torch.Tensor,
 ) -> torch.Tensor:
     """The body of :func:`scatter_add_streams_2d` on one process's grid

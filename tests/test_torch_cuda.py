@@ -1,5 +1,5 @@
 """The PyTorch port on a CUDA card against its plain PyTorch versions and the
-CPU: the kernels K1, K2, D1, D2 and D3 and every path through them (updates,
+CPU: the kernels K1, K2 and D1 to D5 and every path through them (updates,
 the exact march and replay, the semantic fusions, the image path,
 post-processing, plane segmentation, batches of maps, sharded worlds, the
 runtime service, the sensor sidecar and the DINO ViT, the profile entry
@@ -38,15 +38,17 @@ def _counts() -> dict:
     return {name: k.launches for name, k in kernels.registered_kernels().items()}
 
 
-def _launched(before: dict, k1: int, k2: int, d1: int, d2: int, times: int = 1) -> None:
-    """Each kernel's launches since ``before``: K1, K2, D1 and D2 per call,
-    over ``times`` calls. D3 (the polar cube's scans) runs wherever D2
-    does, once per polar cleanup, so it takes D2's count."""
+def _launched(before: dict, k1: int, k2: int, d1: int, d2: int, d45: int, times: int = 1) -> None:
+    """Each kernel's launches since ``before``: K1, K2, D1, D2 and D4 per
+    call, over ``times`` calls. D3 (the polar cube's scans) runs wherever D2
+    does, once per polar cleanup, so it takes D2's count; D5 (the fusion's
+    proposals) wherever D4 (the association) does, once per update or
+    batched step of whole maps, so it takes D4's."""
     torch.cuda.synchronize()
     now = _counts()
     got = {name: now[name] - before[name] for name in now}
     want = {"scatter_add_streams": k1, "exact_march": k2, "dilation_fill": d1, "polar_evaluate": d2,
-            "polar_scan": d2}
+            "polar_scan": d2, "points_associate": d45, "points_fuse": d45}
     assert got == {name: n * times for name, n in want.items()}, got
 
 
@@ -552,8 +554,8 @@ def test_polar_scan_kernel_on_empty_and_single_ray_cubes(card):
 
 def test_update_on_card_matches_cpu(card):
     """Three updates of the smoke scene on a small map, on the card and on
-    the CPU: K1 three times, K2 never, D1 and D2 once an update, and every
-    layer within 1e-4."""
+    the CPU: K1 three times, K2 never, D1, D2, D4 and D5 once an update, and
+    every layer within 1e-4."""
     cfg = MapConfig(resolution=0.1, map_length=4.0, max_ray_length=1.5, max_points=8192, raycast_mode="polar")
     gpu, cpu = ElevationMap(cfg), ElevationMap(cfg, device="cpu")
     rng = np.random.default_rng(3)
@@ -564,7 +566,7 @@ def test_update_on_card_matches_cpu(card):
         for em in (gpu, cpu):
             em.move_to(pos, R)
             em.input_pointcloud(pts, ["x", "y", "z"], R, t, 0.0, 0.0)
-    _launched(before, 3, 0, 1, 1, times=3)
+    _launched(before, 3, 0, 1, 1, 1, times=3)
     names = ["elevation", "variance", "is_valid", "traversability", "upper_bound", "normal_z"]
     got, want = gpu.get_layers(names), cpu.get_layers(names)
     for name in names:
@@ -757,8 +759,9 @@ def test_march_kernel_empty_and_masked(card):
 
 
 def test_exact_update_on_card_matches_cpu(card):
-    """Three exact-march updates on the card and on the CPU: K1 twice, K2
-    and D1 once and D2 never per update, and every layer within 1e-4."""
+    """Three exact-march updates on the card and on the CPU: K1 twice, K2,
+    D1, D4 and D5 once and D2 never per update, and every layer within
+    1e-4."""
     cfg = MapConfig(**SMALL_KW, raycast_mode="exact")
     gpu, cpu = ElevationMap(cfg), ElevationMap(cfg, device="cpu")
     rng = np.random.default_rng(11)
@@ -770,7 +773,7 @@ def test_exact_update_on_card_matches_cpu(card):
             em.move_to(pos, R)
             em.input_pointcloud(pts, ["x", "y", "z"], R, t, 0.0, 0.0)
             em.update_time()
-    _launched(before, 2, 1, 1, 0, times=3)
+    _launched(before, 2, 1, 1, 0, 1, times=3)
     names = ["elevation", "variance", "is_valid", "traversability", "upper_bound", "is_upper_bound", "normal_z"]
     got, want = gpu.get_layers(names), cpu.get_layers(names)
     for name in names:
@@ -780,7 +783,7 @@ def test_exact_update_on_card_matches_cpu(card):
 def test_replay_on_card_matches_cpu(card, tmp_path):
     """A 3-frame log of the deployed map replayed with the exact march (353
     steps x 20000 rays: the router's gated and flat marches) on the card and
-    on the CPU: K1 twice, K2 and D1 once and D2 never a frame, and every
+    on the CPU: K1 twice, K2, D1, D4 and D5 once and D2 never a frame, and every
     frame's layers within 1e-4 on 99.9 % of cells."""
     from elevation_mapping_cupy_torch.runtime.replay import LogWriter, replay
 
@@ -794,7 +797,7 @@ def test_replay_on_card_matches_cpu(card, tmp_path):
     cfg, kw = torch_scenes.deployed_config(), dict(snapshot_layers=torch_scenes.LAYERS, raycast_mode="exact")
     before = _counts()
     got = replay(path, cfg, device="cuda", **kw)
-    _launched(before, 2, 1, 1, 0, times=3)
+    _launched(before, 2, 1, 1, 0, 1, times=3)
     for i, (g, c) in enumerate(zip(got, replay(path, cfg, device="cpu", **kw))):
         torch_scenes.compare_layers(f"replay frame {i}", g, c)
 
@@ -802,7 +805,7 @@ def test_replay_on_card_matches_cpu(card, tmp_path):
 def test_profile_on_card_matches_cpu(card):
     """The profile entry point on the card (10 iterations of 100000 points
     at the default MapConfig): K1 five times (geometry 3, colour, and
-    class_bayesian), D1 and D2 once and K2 never an update, its warm-up
+    class_bayesian), D1, D2, D4 and D5 once and K2 never an update, its warm-up
     included. Then one update of its map on the card and the CPU from the
     same state: layers within 1e-4 (the colour bit for bit), sem_new within
     1e-4 of max(1, |sum|) and id_max bit for bit, on 99.9 % of cells."""
@@ -811,7 +814,7 @@ def test_profile_on_card_matches_cpu(card):
 
     before = _counts()
     assert profile.main(["--iters", "10", "--points", "100000"])
-    _launched(before, 5, 0, 1, 1, times=11)
+    _launched(before, 5, 0, 1, 1, 1, times=11)
     cfg = profile.profile_config(100_000)
     rng = np.random.default_rng(123)
     R = np.eye(3, dtype=np.float32)
@@ -878,7 +881,7 @@ def test_semantic_maps_on_card_match_cpu(card, table, points):
             cpu.state = state_from_numpy(state_to_numpy(gpu.state), "cpu")
             cpu.input_pointcloud(cloud, names, R, t, 0.0, 0.0)
         gpu.input_pointcloud(cloud, names, R, t, 0.0, 0.0)
-    _launched(before, k1, 0, 1, 1, times=4)
+    _launched(before, k1, 0, 1, 1, 1, times=4)
     layers = torch_scenes.LAYERS + list(cfg.semantic_layers)
     packed = ("rgb",) if table == "semantic_mem" else ()
     torch_scenes.compare_layers(table, gpu.get_layers(layers), cpu.get_layers(layers), packed=packed)
@@ -1139,7 +1142,7 @@ def test_initialize_map_on_card_matches_cpu(card):
     before = _counts()
     for em in (gpu, cpu):
         em.initialize_map(pts, "linear")
-    _launched(before, 0, 0, 2, 0)  # it dilates twice at dilation_size_initialize
+    _launched(before, 0, 0, 2, 0, 0)  # it dilates twice at dilation_size_initialize
     names = ["elevation", "variance", "is_valid", "upper_bound"]
     got, want = gpu.get_layers(names), cpu.get_layers(names)
     for name in names:
@@ -1256,7 +1259,7 @@ def test_planeseg_pipeline_on_card_matches_cpu(card):
     pipe = PlaneDecompositionPipeline(0.04, device="cuda")
     before = _counts()
     batch = pipe.update_batch(maps)
-    _launched(before, 2, 0, 0, 0)
+    _launched(before, 2, 0, 0, 0, 0)
     for b, t in enumerate(batch):
         np.testing.assert_array_equal(t.labels, pipe.update(maps[b]).labels)
 
@@ -1267,8 +1270,8 @@ def test_planeseg_pipeline_on_card_matches_cpu(card):
 
 def test_batched_step_on_card_matches_per_map(card):
     """A batched step of 4 maps at the default MapConfig (clouds from
-    make_batch_clouds on the card) launches K1 three times, D1 and D2 once
-    and K2 never, and equals each map's own update on the card within 1e-5
+    make_batch_clouds on the card) launches K1 three times, D1, D2, D4 and
+    D5 once and K2 never, and equals each map's own update on the card within 1e-5
     and the CPU port's batched step within 1e-4, on 99.9 % of cells."""
     from elevation_mapping_cupy_torch.nn.traversability import DEFAULT_WEIGHT_FILE, load_weights_npz
     from elevation_mapping_cupy_torch.parallel import batched_update, init_batch
@@ -1287,7 +1290,7 @@ def test_batched_step_on_card_matches_per_map(card):
     states = batched_update(states, pts, mask, R, t, z, z, w, cfg)
     before = _counts()
     out = batched_update(states, pts, mask, R, t, z, z, w, cfg)
-    _launched(before, 3, 0, 1, 1)
+    _launched(before, 3, 0, 1, 1, 1)
     assert float((out.layers[:, 2] > 0.5).float().mean()) > 0.02
     on_cpu = batched_update(MapState(*(x.cpu() for x in states)), *(x.cpu() for x in (pts, mask, R, t, z, z)),
                             load_weights_npz(DEFAULT_WEIGHT_FILE), cfg)
@@ -1345,8 +1348,8 @@ def test_exact_cleanup_in_one_launch_matches_its_parts(card, b, aged, impl):
 @pytest.mark.parametrize("b", [64, 8])
 def test_batched_exact_step_on_card_matches_cpu(card, b):
     """A datagen step of ``b`` maps of 100000 points with the exact cleanup
-    (MapConfig(raycast_mode="exact")): K1 twice, K2 and D1 once, D2 and D3
-    never, whatever B is; every field within 1e-4 of the CPU port's step on
+    (MapConfig(raycast_mode="exact")): K1 twice, K2, D1, D4 and D5 once, D2
+    and D3 never, whatever B is; every field within 1e-4 of the CPU port's step on
     99.9 % of cells."""
     from elevation_mapping_cupy_torch.nn.traversability import default_weights
     from elevation_mapping_cupy_torch.parallel import batched_update
@@ -1355,7 +1358,7 @@ def test_batched_exact_step_on_card_matches_cpu(card, b):
     cfg, args, state, _, _ = torch_scenes.datagen_exact_step(b, 100000, card, steps=8, aged=True)
     before = _counts()
     out = batched_update(state, *args)
-    _launched(before, 2, 1, 1, 0)
+    _launched(before, 2, 1, 1, 0, 1)
     on_cpu = batched_update(MapState(*(x.cpu() for x in state)), *(x.cpu() for x in args[:6]), default_weights(),
                             cfg)
     torch_scenes.share_within(f"exact step B={b} on the CPU", state_to_numpy(out), state_to_numpy(on_cpu),
@@ -1457,7 +1460,7 @@ def test_one_process_nccl_group_on_card(card, tmp_path):
 
 def test_service_raw_ingest_on_card_matches_cpu(card):
     """MappingService on the card: raw PointCloud2-style frames through the
-    native ring, K1 three times and D1 and D2 once a frame, a publisher of
+    native ring, K1 three times and D1, D2, D4 and D5 once a frame, a publisher of
     the layers, then an image frame (no kernel launch), two submaps and
     CheckSafety. The same through the CPU service: the final map within
     1e-4 on 99.9 % of cells (the colour bit for bit), the same publishes,
@@ -1487,7 +1490,7 @@ def test_service_raw_ingest_on_card_matches_cpu(card):
             assert svc.enqueue_raw_pointcloud(raw, 8192, torch_scenes.POINT_STEP, [0, 4, 8], ["x", "y", "z"], R, t)
             assert svc.spin_once(now=0.1 * (k + 1)) == 1
         if dev == "cuda":
-            _launched(before, 3, 0, 1, 1, times=3)
+            _launched(before, 3, 0, 1, 1, 1, times=3)
             assert svc.mapper.state.layers.device.type == "cuda"
         c = svc.mapper.center
         before = _counts()
@@ -1495,7 +1498,7 @@ def test_service_raw_ingest_on_card_matches_cpu(card):
                                 K=K, D=np.zeros(5, np.float32)))
         svc.spin_once(now=0.5)
         if dev == "cuda":
-            _launched(before, 0, 0, 0, 0)
+            _launched(before, 0, 0, 0, 0, 0)
         submaps = {f"submap:{k}": v for k, v in svc.get_submap(c[:2] + 0.5, (2.0, 1.6), ["elevation", "traversability"]).items()}
         submaps.update({f"yawed:{k}": v for k, v in svc.get_submap(
             c[:2], (1.6, 1.6), ["elevation"], frame_transform=(yaw, np.array([0.0, 0.0, 0.5]))).items()})
@@ -1568,7 +1571,7 @@ def test_sensor_node_into_semantic_service_on_card_matches_cpu(card):
     with dino_vits8 (vit_small/8, bf16) on the card turns 480x640 depth+rgb
     frames into clouds with three DINO channels, which a MappingService on
     semantic_mem.yaml's tables fuses (rgb -> color, the rest ->
-    class_average): K1 five times, D1 and D2 once a frame. The same clouds
+    class_average): K1 five times, D1, D2, D4 and D5 once a frame. The same clouds
     through the CPU service give the same map (1e-4 on 99.9 % of cells, the
     colour bit for bit), and each DINO channel covers half the camera's
     footprint."""
@@ -1589,7 +1592,7 @@ def test_sensor_node_into_semantic_service_on_card_matches_cpu(card):
             svc.update_pose(torch_scenes.robot_pose(k)[2], np.eye(3))
             svc.enqueue(SensorFrame(kind="pointcloud", channels=tuple(names), data=cloud, R=R, t=cam))
             assert svc.spin_once(now=0.1 * k) == 1
-    _launched(before, 5, 0, 1, 1, times=3)
+    _launched(before, 5, 0, 1, 1, 1, times=3)
     layers = torch_scenes.LAYERS + list(cfg.semantic_layers)
     gpu, cpu = (svc.mapper.get_layers(layers) for svc in services)
     torch_scenes.compare_layers("sensor into semantic service", gpu, cpu, packed=("rgb",))
@@ -1620,7 +1623,8 @@ def test_resolve_model_propagates_card_errors(card):
 # per example, K1's launches of its run as it ships (every example resolves
 # to the polar cleanup, so K2 never runs) and D1's, D2's and D3's (one per
 # update or batched step, per process for the sharded world; none per plane
-# decomposition); and regular expressions its main's output must match
+# decomposition), D4's and D5's (the same, but none in the sharded world's
+# processes); and regular expressions its main's output must match
 EXAMPLES = {
     "plane_decomposition_demo": (2 * 6, 0, [r"^regions: ([2-9]|\d\d+)$", r"convex 12-gon"]),
     "minimal_mapping": (3 * 6 + 2, 6, [r"^elevation\s+valid=\s*\d+ range=\[[-+]\d",
@@ -1690,7 +1694,7 @@ def test_example_on_card_matches_cpu(card, tmp_path, name):
     else:
         got = mod.run("cuda")
     if name != "large_world_sharded":
-        _launched(before, k1, 0, d12, d12)
+        _launched(before, k1, 0, d12, d12, d12)
     run = mod.run
     mod.run = lambda *a, **k: got
     try:
@@ -1735,7 +1739,7 @@ def test_example_on_card_matches_cpu(card, tmp_path, name):
                 rep = json.load(f)
             torch_scenes.check_launches(f"rank {rank}", rep["launches"], 1, {
                 "scatter_add_streams": k1, "exact_march": 0, "dilation_fill": d12, "polar_evaluate": d12,
-                "polar_scan": d12})
+                "polar_scan": d12, "points_associate": 0, "points_fuse": 0})
         from elevation_mapping_cupy_torch.nn.traversability import default_weights
         from elevation_mapping_cupy_torch.state import init_state
 

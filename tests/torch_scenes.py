@@ -90,9 +90,9 @@ SPATIAL_TIMEOUT_S = 300
 SPATIAL_TOL = 1e-5
 SPATIAL_MOVE = {"exact1024": (0.5, -0.3, 0.1), "polar1024": (1.0, -0.6, 0.0)}
 SPATIAL_LAUNCHES = {"exact1024": {"scatter_add_streams": 2, "exact_march": 1, "dilation_fill": 1,
-                                  "polar_evaluate": 0, "polar_scan": 0},
+                                  "polar_evaluate": 0, "polar_scan": 0, "points_associate": 0, "points_fuse": 0},
                     "polar1024": {"scatter_add_streams": 3, "exact_march": 0, "dilation_fill": 1,
-                                  "polar_evaluate": 1, "polar_scan": 1}}
+                                  "polar_evaluate": 1, "polar_scan": 1, "points_associate": 0, "points_fuse": 0}}
 
 
 def deployed_config():
@@ -671,6 +671,133 @@ def k2_shapes():
         yield shapes
     finally:
         raycast.cuda_march.exact_march = march
+
+
+# ---------------------------------------------------------------------------
+# D4 and D5 against their plain versions
+# ---------------------------------------------------------------------------
+
+def point_stage_inputs(cfg, b: int, n: int, device, channels: int = 0, seed: int = 0, nan: bool = True) -> tuple:
+    """(points (b, n, 3 + channels), pad_mask, R, t, layers) as
+    ``core.update_batch_aux`` hands them to the association, on ``cfg``'s
+    map: heights near 0 with variances on both sides of the drift
+    compensation's inlier limit and a third of the cells invalid; points
+    within 0.3 m of the map's heights, some beyond the map and on its border
+    ring, some above the validity ramp and some too close to the sensor, 5 %
+    padding (half of it zeros), 1 % NaN with ``nan`` (the card's
+    cast puts them on cell 0; the CPU's cannot index them). Map 0's sensor is
+    unrotated at the map's centre, and an eighth of its points lie exactly
+    on cell edges (x and y the float32 of k * resolution), where the cell
+    index's true division decides the cell; the other maps' sensors are
+    tilted and turned."""
+    rng = np.random.default_rng(seed)
+    c, res = cfg.cell_n, cfg.resolution
+    half = 0.5 * c * res
+    layers = np.zeros((b, 7, c, c), np.float32)
+    layers[:, 0] = rng.normal(0.0, 0.05, (b, c, c))
+    layers[:, 1] = rng.uniform(0.0005, 0.1, (b, c, c))
+    layers[:, 2] = rng.random((b, c, c)) < 0.67
+    layers[:, 3] = rng.random((b, c, c))
+    layers[:, 4:] = rng.normal(0.0, 1.0, (b, 3, c, c))
+    R = np.zeros((b, 3, 3))
+    t = np.zeros((b, 3))
+    for k in range(b):
+        yaw, tilt = (0.0, 0.0) if k == 0 else (rng.uniform(-math.pi, math.pi), rng.uniform(-0.2, 0.2))
+        cy, sy, ct, st = math.cos(yaw), math.sin(yaw), math.cos(tilt), math.sin(tilt)
+        R[k] = np.array([[cy, -sy, 0.0], [sy, cy, 0.0], [0.0, 0.0, 1.0]]) @ np.array(
+            [[ct, 0.0, st], [0.0, 1.0, 0.0], [-st, 0.0, ct]])
+        t[k] = (0.0, 0.0, 0.6) if k == 0 else (rng.uniform(-0.3, 0.3), rng.uniform(-0.3, 0.3), rng.uniform(0.4, 0.8))
+    R, t = R.astype(np.float32), t.astype(np.float32)
+    world = np.stack([rng.uniform(-half - 0.3, half + 0.3, (b, n)), rng.uniform(-half - 0.3, half + 0.3, (b, n)),
+                      rng.normal(0.0, 0.1, (b, n))], axis=-1)
+    ring = rng.random((b, n)) < 0.02  # on the border ring's cells
+    world[..., 0] = np.where(ring, np.sign(world[..., 0]) * (half - 0.5 * res), world[..., 0])
+    high = rng.random((b, n)) < 0.03  # above the ramp or the height limit
+    world[..., 2] = np.where(high, rng.uniform(0.3, 2.0, (b, n)), world[..., 2])
+    near = rng.random((b, n)) < 0.01  # too close to the sensor
+    world = np.where(near[..., None], t[:, None, :] + rng.uniform(-0.25, 0.25, (b, n, 3)), world)
+    pts = np.einsum("bji,bnj->bni", R.astype(np.float64), world - t[:, None, :].astype(np.float64))
+    pts = pts.astype(np.float32)
+    edges = rng.random(n) < 0.125
+    k_xy = rng.integers(-c // 2, c // 2 + 1, (2, n))
+    pts[0, edges, 0] = (k_xy[0, edges] * res).astype(np.float32)
+    pts[0, edges, 1] = (k_xy[1, edges] * res).astype(np.float32)
+    pad = rng.random((b, n)) >= 0.05
+    pts[~pad & (rng.random((b, n)) < 0.5)] = 0.0
+    if nan:
+        pts[rng.random((b, n)) < 0.01] = np.nan
+    if channels:
+        pts = np.concatenate([pts, rng.random((b, n, channels)).astype(np.float32)], axis=-1)
+    return tuple(torch.from_numpy(x).to(device) for x in (pts, pad, R, t, layers))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors are equal in dtype, shape and bits (float32 NaNs
+    by their bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return torch.equal(a, b)
+
+
+def check_point_stages(label: str, cfg, inputs) -> dict:
+    """D4 and D5 against their plain versions on the card, on ``inputs``
+    (``point_stage_inputs``): every field of the association, the cells'
+    rows and K1's error-counting streams bit for bit, the inlier counts
+    equal, the error sums within 1e-6 of max(1, |sum|) of the float64 sum
+    of the plain version's terms (``max_rel_err``; the plain version's own
+    float32 sum's is ``plain_rel_err``) and equal in bits over two
+    launches; then, with the drift gate open (h_delta from the
+    kernel's error sums), the fusion's four streams and active mask bit for
+    bit. One launch of each kernel a call. Returns the case's counts."""
+    from elevation_mapping_cupy_torch.ops import point_stages as ps
+    from elevation_mapping_cupy_torch.ops import pointcloud as pc
+    from elevation_mapping_cupy_torch.ops import scatter
+
+    def fault(what):
+        raise AssertionError(f"point stages {label}: {what}")
+
+    points, pad, R, t, layers = inputs
+    b, n = pad.shape
+    before = (ps.ASSOCIATE_KERNEL.launches, ps.FUSE_KERNEL.launches)
+    got = ps.associate(*inputs, cfg)
+    want = ps._associate(*inputs, cfg)
+    for name in got.assoc._fields:
+        if not same_bits(getattr(got.assoc, name), getattr(want.assoc, name)):
+            fault(f"{name} differs from the plain version")
+    for name in ("rows", "counted", "error_cnt"):
+        if not same_bits(getattr(got, name).contiguous(), getattr(want, name).contiguous()):
+            fault(f"{name} differs from the plain version")
+    # the error sums against the float64 sum of the plain version's terms
+    terms = torch.where(want.counted[:, 0] > 0, want.assoc.world[..., 2] - want.rows[..., 0], 0.0).double()
+    exact = terms.sum(-1)
+
+    def off(x):
+        return float(((x.double() - exact).abs() / exact.abs().clamp(min=1.0)).max()) if b else 0.0
+
+    rel, plain_rel = off(got.error_sum), off(want.error_sum)
+    if not rel <= 1e-6:
+        fault(f"error_sum {rel} off the float64 sum of its terms (the plain version's: {plain_rel})")
+    if not same_bits(ps.associate(*inputs, cfg).error_sum, got.error_sum):
+        fault("error_sum differs between two launches")
+    h, w = layers.shape[-2:]
+    sums = scatter.scatter_add_streams_2d(h, w, got.assoc.flat_idx, got.counted, got.assoc.mask)
+    counts = pc.ErrorCounts(sums[:, 0], sums[:, 1], got.error_sum, got.error_cnt)
+    zero = torch.zeros(b, device=layers.device)
+    gate_cfg = cfg.replace(enable_drift_compensation=True, min_height_drift_cnt=0, max_drift=1e9)
+    _, _, _, h_delta = pc.apply_drift_compensation(layers, counts, zero + 1.0, zero, zero, zero, gate_cfg)
+    streams, active = ps.fuse(got, h_delta, counts.point_cnt, cfg)
+    want_streams, want_active = ps._fuse(got, h_delta, counts.point_cnt, cfg)
+    if not (same_bits(streams, want_streams) and same_bits(active, want_active)):
+        fault("the fusion's streams differ from the plain version")
+    torch.cuda.synchronize()
+    if (ps.ASSOCIATE_KERNEL.launches - before[0], ps.FUSE_KERNEL.launches - before[1]) != (2, 1):
+        fault("not one launch of each kernel a call")
+    return {"case": label, "B": b, "N": n, "row_floats": points.shape[-1], "masked": int(got.assoc.mask.sum()),
+            "inliers": int(got.error_cnt.sum()), "fused": int(streams[:, 2].sum()),
+            "outliers": int(streams[:, 3].sum()), "maps_drifted": int((h_delta != 0).sum()),
+            "max_rel_err": rel, "plain_rel_err": plain_rel}
 
 
 # ---------------------------------------------------------------------------
