@@ -269,33 +269,34 @@ class ElevationMap:
         colour channel takes three planes. ``image_height`` and
         ``image_width`` belong to the reference's signature; the image's own
         shape is what counts."""
-        if isinstance(image, (list, tuple)):
-            img = np.stack([np.asarray(c, np.float32) for c in image], axis=0)
-        else:
-            img = np.asarray(image, np.float32)
-        if img.ndim == 2:
-            img = img[None]
-        D = np.asarray(D, np.float32).reshape(-1)
-        if len(D) < 4:
-            D = np.zeros(5, np.float32)
-        elif len(D) == 4:
-            D = np.concatenate([D, np.zeros(1, np.float32)])
-        else:
-            D = D[:5]
-        if distortion_model != "radtan":
-            D = D * 0  # other models unimplemented in the reference too
-        chans = tuple(channels)
-        self._grow_semantic_layers([c for c in chans if self.cfg.fusion_for_channel(c, "image")])
-        self.state = core.input_image(
-            self.state,
-            self._tensor(img),
-            self._tensor(R),
-            self._tensor(t),
-            self._tensor(np.asarray(K, np.float32).reshape(3, 3)),
-            self._tensor(D),
-            self.cfg,
-            chans,
-        )
+        with tracing.span("mapper.input_image"):
+            if isinstance(image, (list, tuple)):
+                img = np.stack([np.asarray(c, np.float32) for c in image], axis=0)
+            else:
+                img = np.asarray(image, np.float32)
+            if img.ndim == 2:
+                img = img[None]
+            D = np.asarray(D, np.float32).reshape(-1)
+            if len(D) < 4:
+                D = np.zeros(5, np.float32)
+            elif len(D) == 4:
+                D = np.concatenate([D, np.zeros(1, np.float32)])
+            else:
+                D = D[:5]
+            if distortion_model != "radtan":
+                D = D * 0  # other models unimplemented in the reference too
+            chans = tuple(channels)
+            self._grow_semantic_layers([c for c in chans if self.cfg.fusion_for_channel(c, "image")])
+            self.state = core.input_image(
+                self.state,
+                self._tensor(img),
+                self._tensor(R),
+                self._tensor(t),
+                self._tensor(np.asarray(K, np.float32).reshape(3, 3)),
+                self._tensor(D),
+                self.cfg,
+                chans,
+            )
 
     def update_variance(self) -> None:
         self.state = core.update_variance(self.state, self.cfg)

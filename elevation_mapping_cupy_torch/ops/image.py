@@ -28,6 +28,7 @@ from typing import Tuple
 
 import torch
 
+from .. import tracing
 from ..config import MapConfig
 from ..semantic.fusions import uint_to_rgb_float
 from . import scatter
@@ -41,8 +42,9 @@ __all__ = [
 ]
 
 # the Bresenham walk asks the device whether every cell is done once per
-# this many steps (one read-back each); a finished walk changes nothing, so
-# stopping early gives the same result as all 2*cell_n steps
+# this many steps (one read-back each, counted as a blocking transfer); a
+# finished walk changes nothing, so stopping early gives the same result as
+# all 2*cell_n steps
 BRESENHAM_CHECK_EVERY = 8
 
 
@@ -119,10 +121,11 @@ def image_to_map_correspondence(
     y1 = cam_xy_cell[:, 1, None].to(torch.int64)
     cz = cam_z[:, None]
 
-    if cfg.image_occlusion_mode == "shadow":
-        blocked = _occlusion_shadow(flat_h, flat_valid, x0, y0, x1, y1, cz, cfg)
-    else:
-        blocked = _occlusion_bresenham(flat_h, flat_valid, candidate, x0, y0, x1, y1, cz, cfg)
+    with tracing.span("image.occlusion", stream=layers.is_cuda):
+        if cfg.image_occlusion_mode == "shadow":
+            blocked = _occlusion_shadow(flat_h, flat_valid, x0, y0, x1, y1, cz, cfg)
+        else:
+            blocked = _occlusion_bresenham(flat_h, flat_valid, candidate, x0, y0, x1, y1, cz, cfg)
 
     uv = torch.stack([u, v], dim=1).reshape(nb, 2, n, n)
     valid = (candidate & ~blocked).reshape(nb, n, n)
@@ -164,7 +167,7 @@ def _occlusion_bresenham(
     done = ~candidate
     blocked = torch.zeros_like(candidate)
     for step in range(2 * n):
-        if step % BRESENHAM_CHECK_EVERY == 0 and bool(done.all()):
+        if step % BRESENHAM_CHECK_EVERY == 0 and bool(tracing.read_back(done.all())):
             break
         at_cam = (cx_ == x1) & (cy_ == y1)
         done = done | at_cam

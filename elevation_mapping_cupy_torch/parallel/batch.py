@@ -94,7 +94,8 @@ def batched_input_image(
     """Fuse one camera image per env into its semantic layers: projection,
     occlusion (shadow or Bresenham) and the per-channel image fusions, all
     envs in one pass. Rebind like :func:`batched_update`."""
-    return core.input_image(states, images, R, t, K, D, cfg, tuple(channels))
+    with tracing.span("batch.input_image", stream=states.layers.is_cuda, maps=states.layers.shape[0]):
+        return core.input_image(states, images, R, t, K, D, cfg, tuple(channels))
 
 
 def shard_states(states: MapState, mesh: Mesh, axis: str = "env") -> MapState:

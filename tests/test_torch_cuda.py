@@ -1417,6 +1417,57 @@ def test_batched_input_image_on_card_matches_per_map(card, mode):
     assert float((got[:, 1] - want[:, 1]).abs().max()) <= 1e-6
 
 
+def test_batched_bresenham_image_step_at_the_datagen_widths_matches_cpu(card):
+    """One batched Bresenham image step at B = 8 at the widths of the cell
+    datagen_mem.b64_ep8_cam (202x202 cells at 0.04 m, semantic_mem's four
+    layers, 640x480 images of 6 planes, a camera 0.8 m up pitched 30
+    degrees down with radtan distortion), on the card and on the CPU port
+    from the same state: every map's camera cell and pixels agree, the
+    cells either side sees agree on all but 1e-4 of the cells, and on the
+    cells both see at the same pixel the colour layer equals the CPU's bit
+    for bit and the class layers within 1e-6."""
+    from elevation_mapping_cupy_torch.parallel import batched_input_image, init_batch
+
+    b, (H, W) = 8, torch_scenes.IMAGE_SHAPE
+    channels = torch_scenes.MEM_CHANNELS
+    cfg = MapConfig(max_points=100000, semantic_layers=channels, image_occlusion_mode="bresenham")
+    n = cfg.cell_n
+    rng = np.random.default_rng(24)
+    maps = init_batch(cfg, b, "cpu")
+    r = (np.arange(n) - n / 2) * cfg.resolution
+    dist = np.hypot(r[:, None], r[None, :])
+    terraces = np.round(rng.random((b, 1, 1)) + np.sin(r[None, :, None] * rng.uniform(2, 5, (b, 1, 1))))
+    height = 0.15 * terraces + rng.normal(0.0, 0.02, (b, n, n))
+    maps.layers[:, 0] = torch.from_numpy(height.astype(np.float32))
+    maps.layers[:, 2] = torch.from_numpy(np.broadcast_to(dist < 1.73, (b, n, n)).astype(np.float32))
+    img = np.concatenate([rng.integers(0, 256, (b, 3, H, W)), rng.dirichlet(np.ones(3), (b, H, W)).transpose(0, 3, 1, 2)],
+                         axis=1).astype(np.float32)
+    s, c = 0.5, math.sqrt(0.75)
+    Rc = np.array([[0.0, -1.0, 0.0], [-s, 0.0, -c], [c, 0.0, -s]], np.float32)
+    tc = np.stack([-Rc @ np.array([0.01 * k, 0.0, 0.8], np.float32) for k in range(b)])
+    K = np.array([[462.0, 0, 320.0], [0, 462.0, 240.0], [0, 0, 1]], np.float32)
+    D = np.array([-0.05, 0.01, 0.0005, -0.0005, 0.0], np.float32)
+    host = [torch.from_numpy(np.ascontiguousarray(x)) for x in
+            (img, np.broadcast_to(Rc, (b, 3, 3)), tc, np.broadcast_to(K, (b, 3, 3)), np.broadcast_to(D, (b, 5)))]
+    out, seen = [], []
+    for dev in (card, torch.device("cpu")):
+        st = type(maps)(*(x.to(dev) for x in maps))
+        args = [x.to(dev) for x in host]
+        uv, valid = core.image_correspondence(st, H, W, *args[1:], cfg)
+        seen.append((valid.cpu(), (uv[:, 0].to(torch.int64) + uv[:, 1].to(torch.int64) * W).cpu()))
+        out.append(batched_input_image(st, *args, cfg, channels).semantic.cpu())
+    (v_gpu, px_gpu), (v_cpu, px_cpu) = seen
+    candidates = (px_cpu != 0) | (px_gpu != 0)
+    assert float(v_cpu.float().mean()) > 0.01 and int((candidates & ~v_cpu).sum()) > 100  # the walk occludes
+    assert float((v_cpu != v_gpu).float().mean()) <= 1e-4
+    assert float((px_cpu != px_gpu).float().sum() / candidates.float().sum()) <= 1e-4
+    same = v_cpu & v_gpu & (px_cpu == px_gpu)
+    got, want = out
+    assert torch.equal(_float_bits(got[:, 0])[same], _float_bits(want[:, 0])[same])
+    assert float((got[:, 1:] - want[:, 1:]).abs().amax(dim=1)[same].max()) <= 1e-6
+    assert float(same.float().sum()) >= 0.999 * float((v_cpu | v_gpu).float().sum())
+
+
 def test_one_process_nccl_group_on_card(card, tmp_path):
     """NCCL on one card: a one-process group, a (1, 1) pod mesh, a batched
     step fed through HostFeed, batch_stats through NCCL's all-reduce equal

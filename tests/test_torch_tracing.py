@@ -317,6 +317,78 @@ def test_fps_is_the_service_own_last_50_frames():
     assert svc.stats.pointcloud_process_fps == pytest.approx(1.0 / np.mean(svc._proc_times))
 
 
+IMAGE_CFG = MapConfig(resolution=0.1, map_length=2.0, semantic_layers=("rgb", "mask"), image_channel_fusions=(
+    ("rgb", "color"), ("default", "exponential")))
+# a camera 1.2 m up, looking down past the map's centre; an image of 4 planes
+IMAGE_R = np.array([[0.0, -1.0, 0.0], [-0.5, 0.0, -0.866], [0.866, 0.0, -0.5]], np.float32)
+IMAGE_K = np.array([[20.0, 0, 16.0], [0, 20.0, 12.0], [0, 0, 1]], np.float32)
+
+
+def _image_inputs(b, seed=0):
+    rng = np.random.default_rng(seed)
+    img = np.concatenate([rng.integers(0, 256, (b, 3, 24, 32)), rng.random((b, 1, 24, 32))], axis=1)
+    t = np.stack([-IMAGE_R @ np.array([-0.4 + 0.1 * k, 0.05, 1.2], np.float32) for k in range(b)])
+    return img.astype(np.float32), t.astype(np.float32)
+
+
+def _image_states(cfg, b, seed=0):
+    from elevation_mapping_cupy_torch.parallel import init_batch
+
+    states = init_batch(cfg, b, "cpu")
+    rng = np.random.default_rng(seed)
+    states.layers[:, 0] = torch.from_numpy(rng.normal(0.0, 0.3, (b, cfg.cell_n, cfg.cell_n)).astype(np.float32))
+    states.layers[:, 2] = 1.0
+    return states
+
+
+@pytest.mark.parametrize("mode", ["bresenham", "shadow"])
+def test_batched_image_span_tree_and_the_walk_reads(mode):
+    """``batched_input_image`` records ``batch.input_image`` > the
+    correspondence (> the occlusion test) and the fusions; the Bresenham
+    walk's early-exit reads are blocking transfers, counted in the process's
+    total and in the spans that hold them; the shadow map reads nothing."""
+    from elevation_mapping_cupy_torch.parallel import batched_input_image
+
+    cfg, b = IMAGE_CFG.replace(image_occlusion_mode=mode), 3
+    states = _image_states(cfg, b)
+    img, t = _image_inputs(b)
+    args = [torch.from_numpy(x) for x in (img, np.broadcast_to(IMAGE_R, (b, 3, 3)).copy(), t,
+                                          np.broadcast_to(IMAGE_K, (b, 3, 3)).copy(), np.zeros((b, 5), np.float32))]
+    before, t0 = tracing.blocking_transfers(), _since()
+    out = batched_input_image(states, *args, cfg, ("rgb", "mask"))
+    reads = tracing.blocking_transfers() - before
+    got = tracing.spans(t0)
+    (step,) = [s for s in got if s.parent is None]
+    assert step.name == "batch.input_image" and step.attrs == {"maps": b}
+    assert [s.name for s in _children(step, got)] == ["core.image_correspondence", "core.image_fusion"]
+    corr, fusion = _children(step, got)
+    (occlusion,) = _children(corr, got)
+    assert occlusion.name == "image.occlusion" and not _children(fusion, got)
+    assert step.transfers == corr.transfers == occlusion.transfers == reads and fusion.transfers == 0
+    if mode == "bresenham":
+        # one read a BRESENHAM_CHECK_EVERY steps until every cell is done
+        assert 1 <= reads <= 2 * cfg.cell_n // 8
+    else:
+        assert reads == 0
+    assert float((out.semantic[:, 1] != 0).float().mean()) > 0.05  # cells were fused
+
+
+def test_mapper_image_span_holds_its_uploads_and_the_walk_reads():
+    from elevation_mapping_cupy_torch.mapper import ElevationMap
+
+    em = ElevationMap(IMAGE_CFG.replace(image_occlusion_mode="bresenham"), device="cpu")
+    em.state = em.state._replace(layers=_image_states(em.cfg, 1).layers[0])
+    img, t = _image_inputs(1)
+    t0 = _since()
+    em.input_image(img[0], ["rgb", "mask"], IMAGE_R, t[0], IMAGE_K, np.zeros(5, np.float32))
+    got = tracing.spans(t0)
+    (top,) = [s for s in got if s.parent is None]
+    assert top.name == "mapper.input_image"
+    assert [s.name for s in _children(top, got)] == ["core.image_correspondence", "core.image_fusion"]
+    (corr,) = [s for s in got if s.name == "core.image_correspondence"]
+    assert corr.transfers >= 1 and top.transfers == corr.transfers + 5  # the image, R, t, K and D
+
+
 @pytest.mark.cuda
 def test_card_frame_syncs_equal_blocking_transfers():
     """On the card: one service frame's synchronising calls, as torch's
